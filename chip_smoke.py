@@ -10,9 +10,18 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
 2. build: compiles every CUDA kernel of ``monocular_visual_odometry_tpu_torch/
    csrc`` with nvcc for sm_90a (one nvcc per source, started together);
 3. kernels: calls each kernel's wrapper on the card at the main path's shapes
-   and at edge cases and requires ``torch.equal`` with its plain PyTorch
-   version; times kernel, plain version and a library yardstick with CUDA
-   events, and works out the least time the card needs for the same work;
+   and at edge cases (multi-stage and ragged K2, ragged K1, K1=1, K2=1) and
+   requires ``torch.equal`` with its plain PyTorch version; times kernel,
+   plain version and a library yardstick with CUDA events, and works out the
+   least time the card needs for the same work. Then, in turns in this one
+   call, the matcher against its first version (PR 1's wrapper and kernel,
+   when their copies are in ``build/pr1/``: ``hamming.py`` and
+   ``hamming_nn_top2.cu``; "not measured" otherwise), beside the launch floor
+   of a graph node (a one-element ``fill_``); and the kernel's time split by
+   input: one train point (launch, set-up, the gate pass over one stage
+   buffer, which has a fixed size, and the merge; next to no staging), r=0
+   (the same plus staging the whole train set, no popcounts), the main
+   path's r (all of it);
 4. main path: renders the 150-frame synthetic benchmark in memory and runs the
    port's ``VOEngine`` (default config at full width, BA off) on ``cuda``;
    checks that it reaches tracking, fails tracking on at most 5 frames, keeps
@@ -26,13 +35,16 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -48,6 +60,14 @@ LOGIC_PER_SM_CLK = 64    # 32-bit bitwise AND/OR/XOR, same table
 GRAPH_CALLS = 20         # calls captured in one CUDA graph for device timing
 FP32_PEAK = 67e12        # H100 SXM, non-tensor fp32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
+# PR 1's wrapper (hamming.py) and kernel (hamming_nn_top2.cu), for the A/B
+# in turns; placed here by hand, never reached by the package
+PR1_DIR = Path(ROOT) / "build" / "pr1"
+DESIGN = ("train set staged in shared memory by 1-D bulk async copies on mbarriers "
+          "(positions+validity and descriptors on separate barriers), 1024-point "
+          "stages in a 2-buffer ring; one warp per query, ceil(K1/SMs) queries per "
+          "block (at most 16); a lane gates 16 point pairs into a bit mask, then "
+          "popcounts only the gated pairs; union-gate and single-gate kernels")
 
 
 def _nvidia_smi(query: str) -> str:
@@ -75,7 +95,8 @@ def _time_ms(fn, iters: int) -> tuple[float, float]:
     these kernels take on the card, so back-to-back eager calls time the
     host. The device time is taken from a CUDA graph that holds
     ``GRAPH_CALLS`` captured calls, replayed ``iters`` times; the eager time
-    (what a caller pays, host included) from plain back-to-back calls."""
+    (what a caller pays, host included) from plain back-to-back calls, the
+    median of 5 runs of ``iters`` calls (the host's time varies more)."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -86,7 +107,22 @@ def _time_ms(fn, iters: int) -> tuple[float, float]:
     graph.replay()
     torch.cuda.synchronize()
     device_ms = _events_ms(graph.replay, iters) / GRAPH_CALLS
-    return device_ms, _events_ms(fn, iters)
+    return device_ms, float(np.median([_events_ms(fn, iters) for _ in range(5)]))
+
+
+def _wrapper_with(module_path, lib_path, tag):
+    """A private copy of a wrapper module whose kernel library (``_lib``) is
+    ``lib_path``."""
+    spec = importlib.util.spec_from_file_location(f"hamming_{tag}", module_path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lib = ctypes.CDLL(str(lib_path))
+    P = ctypes.c_void_p
+    lib.hamming_nn_top2_launch.argtypes = [P, P, P, P, ctypes.c_int, P, P, P, ctypes.c_int,
+                                           ctypes.c_float, P, P, P, P]
+    lib.hamming_nn_top2_launch.restype = ctypes.c_int
+    mod._lib = lib
+    return mod
 
 
 def _hamming_inputs(k1, k2, seed, *, alt=False, invalid=0.1, dev="cuda"):
@@ -160,11 +196,15 @@ def main() -> int:
 
     # ---- 2. build (one nvcc per source, all started together) -------------
     sources = sorted(p[:-3] for p in os.listdir(build.CSRC) if p.endswith(".cu"))
+    jobs = [(name, None) for name in sources]
+    have_pr1 = (PR1_DIR / "hamming.py").exists() and (PR1_DIR / "hamming_nn_top2.cu").exists()
+    if have_pr1:
+        jobs.append(("hamming_nn_top2_pr1", PR1_DIR / "hamming_nn_top2.cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(sources)) as ex:
-        built = dict(zip(sources, ex.map(build.build, sources)))
-    print(f"build: {len(sources)} kernel source(s) in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
+        built = dict(zip((j[0] for j in jobs), ex.map(lambda j: build.build(*j), jobs)))
+    print(f"build: {len(jobs)} kernel librar(ies) from {len(sources)} source(s) in the "
+          f"package in {time.perf_counter() - t0:.2f} s", flush=True)
     for name, (path, secs, log) in built.items():
         print(f"  {name}: {path.name} ({secs:.2f} s)\n{log.strip()}", flush=True)
 
@@ -178,15 +218,24 @@ def main() -> int:
                   ("all_invalid", _hamming_inputs(256, 512, 12, invalid=1.0), 1e6),
                   ("tie", _tie_inputs(13), 1e6),
                   ("on_radius", _on_radius_inputs(14), 50.0),
-                  ("ragged", _hamming_inputs(1000, 777, 15, alt=True), 80.0)]
+                  ("ragged", _hamming_inputs(1000, 777, 15, alt=True), 80.0),
+                  # every pair gated in: the two-buffer ring runs 4.5 stages
+                  ("multi_stage", _hamming_inputs(1536, 4608, 16, alt=True), 1e6),
+                  ("k2_2560", _hamming_inputs(512, 2560, 17), 150.0),
+                  # K1 not a multiple of 4, 8 or 16; a last stage of one point
+                  ("stage_tail", _hamming_inputs(1003, 2049, 18), 120.0),
+                  ("k2_1001", _hamming_inputs(1000, 1001, 19), 80.0),
+                  ("k1_1", _hamming_inputs(1, 1024, 20, invalid=0.0), 1e6),
+                  ("k2_1", _hamming_inputs(1024, 1, 21, invalid=0.0), 1e6),
+                  ("k1_1_k2_1", _hamming_inputs(1, 1, 22, invalid=0.0), 1e6)]
     clock_mhz = float(_nvidia_smi("clocks.max.sm").split()[0])
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     popc_rate = n_sm * POPC_PER_SM_CLK * clock_mhz * 1e6
     logic_rate = n_sm * LOGIC_PER_SM_CLK * clock_mhz * 1e6
 
-    def check(tag, args, r):
+    def check(tag, args, r, fn=HM.hamming_nn_top2):
         d1, uv1, v1, d2, uv2, v2, alt = args
-        got = HM.hamming_nn_top2(d1, uv1, v1, d2, uv2, v2, r, uv1_alt=alt)
+        got = fn(d1, uv1, v1, d2, uv2, v2, r, uv1_alt=alt)
         want = HM.hamming_nn_top2_reference(d1, uv1, v1, d2, uv2, v2, r, uv1_alt=alt)
         torch.cuda.synchronize()
         for g, w_, what in zip(got, want, ("best", "second", "idx")):
@@ -201,12 +250,38 @@ def main() -> int:
         max_err = max(max_err, check(tag, args, r))
         print(f"kernel hamming_nn_top2 {tag}: equal to plain version", flush=True)
 
+    # PR 1's wrapper and kernel
+    others = {}
+    if have_pr1:
+        others["pr1"] = _wrapper_with(PR1_DIR / "hamming.py", built["hamming_nn_top2_pr1"][0],
+                                      "pr1").hamming_nn_top2
+    floor_buf = torch.zeros(1, device="cuda")
+
     shape_rows = []
     for i, (tag, k1, k2, r, alt) in enumerate(main_shapes):
         args = _hamming_inputs(k1, k2, 100 + i, alt=alt)
         max_err = max(max_err, check(tag, args, r))
+        for name, fn in others.items():
+            check(f"{tag} ({name})", args, r, fn)
         d1, uv1, v1, d2, uv2, v2, uv1_alt = args
-        ms, eager_ms = _time_ms(lambda: HM.hamming_nn_top2(*args[:6], r, uv1_alt=uv1_alt), 100)
+        # in turns, mirrored (floor, this kernel, PR 1's, then back), one
+        # CUDA-graph device time and one eager time per turn
+        calls = {"floor": lambda: floor_buf.fill_(1.0),
+                 "new": lambda: HM.hamming_nn_top2(*args[:6], r, uv1_alt=uv1_alt)}
+        calls.update({name: (lambda fn=fn: fn(*args[:6], r, uv1_alt=uv1_alt))
+                      for name, fn in others.items()})
+        turns = {name: [] for name in calls}
+        for name in list(calls) + list(calls)[::-1]:
+            turns[name].append(_time_ms(calls[name], 100))
+        mean = {name: tuple(float(np.mean(v)) for v in zip(*ts)) for name, ts in turns.items()}
+        ms, eager_ms = mean["new"]
+        pr1_ms, pr1_eager_ms = mean.get("pr1", (None, None))
+        # the kernel's time split by input, device ms: one train point (launch,
+        # set-up, the fixed-size gate pass over one stage buffer, merge), r=0
+        # (the same plus staging the whole train set, no popcounts)
+        one_ms = _time_ms(lambda: HM.hamming_nn_top2(d1, uv1, v1, d2[:1], uv2[:1], v2[:1], r,
+                                                     uv1_alt=uv1_alt), 100)[0]
+        r0_ms = _time_ms(lambda: HM.hamming_nn_top2(*args[:6], 0.0, uv1_alt=uv1_alt), 100)[0]
         plain_ms, plain_eager_ms = _time_ms(
             lambda: HM.hamming_nn_top2_reference(*args[:6], r, uv1_alt=uv1_alt), 20)
         a = HM.unpack_pm1(d1).to(torch.bfloat16)
@@ -226,6 +301,9 @@ def main() -> int:
         ops_ms = (pairs * 8 / popc_rate + pairs * 8 / logic_rate
                   + k1 * k2 * 6 * n_pos / FP32_PEAK) * 1e3
         row = dict(shape=tag, k1=k1, k2=k2, r=r, union_gate=alt, ms=ms, eager_ms=eager_ms,
+                   pr1_ms=pr1_ms, pr1_eager_ms=pr1_eager_ms, launch_floor_ms=mean["floor"][0],
+                   one_train_point_ms=one_ms, r0_ms=r0_ms,
+                   turns={name: [list(t) for t in ts] for name, ts in turns.items()},
                    plain_ms=plain_ms, plain_eager_ms=plain_eager_ms, library_ms=library_ms,
                    bound_ms=max(bytes_ms, ops_ms),
                    bound_by="operations" if ops_ms >= bytes_ms else "bytes",
@@ -236,6 +314,14 @@ def main() -> int:
               f"{library_ms:.4f} ms; eager: kernel {eager_ms:.4f} ms, plain {plain_eager_ms:.4f} ms; "
               f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}), {pairs} gated pairs",
               flush=True)
+        fmt = lambda v: "not measured" if v is None else f"{v:.6f} ms"
+        print(f"kernel hamming_nn_top2 {tag} in turns "
+              f"({' '.join(list(calls) + list(calls)[::-1])}): device this design "
+              f"{fmt(ms)}, PR 1 {fmt(pr1_ms)}; eager this wrapper and design {fmt(eager_ms)}, "
+              f"PR 1 {fmt(pr1_eager_ms)}; launch floor (yardstick: one-element fill_ as a "
+              f"graph node) {fmt(mean['floor'][0])}", flush=True)
+        print(f"kernel hamming_nn_top2 {tag} split by input (device): one train point "
+              f"{fmt(one_ms)}, r=0 {fmt(r0_ms)}, r={r} {fmt(ms)}", flush=True)
 
     # ---- 4. main path -----------------------------------------------------
     t0 = time.perf_counter()
@@ -334,6 +420,9 @@ def main() -> int:
         "library_ms": track["library_ms"],
         "library": "torch.matmul bf16 +/-1 distance product only (partial yardstick)",
         "eager_ms": track["eager_ms"],
+        "launch_floor_ms": track["launch_floor_ms"],
+        "pr1_ms": track["pr1_ms"],
+        "design": DESIGN,
         "main_path_ms_per_launch": ham_ms / max(ham_n, 1),
         "shapes": shape_rows,
         "card": card,

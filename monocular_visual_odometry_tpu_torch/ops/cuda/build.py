@@ -32,16 +32,18 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def library_path(name: str, source: Path | None = None) -> Path:
+    src = source or CSRC / f"{name}.cu"
     digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(name: str) -> tuple[Path, float, str]:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
-    Returns (library path, build seconds, compiler output)."""
-    out = library_path(name)
+def build(name: str, source: Path | None = None) -> tuple[Path, float, str]:
+    """Compile ``csrc/<name>.cu`` (or ``source``) into ``lib<name>_<hash>.so``
+    unless that library is already built. Returns (library path, build
+    seconds, compiler output)."""
+    src = source or CSRC / f"{name}.cu"
+    out = library_path(name, src)
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -49,11 +51,10 @@ def build(name: str) -> tuple[Path, float, str]:
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                               str(CSRC / f"{name}.cu")],
+        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
     finally:
         if os.path.exists(tmp):

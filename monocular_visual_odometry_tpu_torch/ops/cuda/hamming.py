@@ -119,14 +119,13 @@ def hamming_nn_top2(desc1, uv1, valid1, desc2, uv2, valid2, r, uv1_alt=None):
                                ("uv2", uv2, torch.float32, (k2, 2)),
                                ("valid2", valid2, torch.bool, (k2,))):
         _check(name, t, dt, shape, dev)
+    ptrs = [t.data_ptr() for t in (desc1, uv1, alt, valid1, desc2, uv2, valid2)]
     best = torch.empty(k1, dtype=torch.float32, device=dev)
     second = torch.empty(k1, dtype=torch.float32, device=dev)
     idx = torch.empty(k1, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().hamming_nn_top2_launch(
-        desc1.data_ptr(), uv1.data_ptr(), alt.data_ptr(), valid1.data_ptr(), k1,
-        desc2.data_ptr(), uv2.data_ptr(), valid2.data_ptr(), k2,
-        _radius2(r), best.data_ptr(), second.data_ptr(), idx.data_ptr(), stream)
+        *ptrs[:4], k1, *ptrs[4:], k2, _radius2(r), best.data_ptr(), second.data_ptr(),
+        idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hamming_nn_top2 launch failed: CUDA error {err}")
     hamming_nn_top2.launches += 1

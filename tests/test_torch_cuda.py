@@ -8,7 +8,13 @@ one (which has no JAX, so the JAX-importing ``conftest.py`` is left out):
 The outputs are Hamming distances, 1e9 sentinels and indices, so the kernel
 must equal the plain version exactly (``torch.equal``), the lowest-index
 tie rule and the union radius gate included. ``CASES`` also feeds the
-plain version against the JAX kernel in ``test_torch_matching.py``.
+plain version against the JAX kernel in ``test_torch_matching.py``;
+``RAGGED_CASES`` hold shapes that kernel does not take (K1 not a multiple
+of 128, K2 not a multiple of 512), which ``test_torch_matching.py`` holds
+against the JAX XLA route instead. The kernel stages the train set in
+1024-point stages through a two-buffer ring: the ``stages_*`` cases cross
+stage boundaries, the ragged ones end a stage off the 16-byte grid of its
+bulk copies and leave the last block of queries part-empty.
 """
 
 import numpy as np
@@ -57,6 +63,16 @@ CASES = {
     "multi_tile": (lambda: _inputs(128, 1024, 3), 1e6),
     "union_gate": (_union_case, 50.0),
     "forced_tie": (_tie_case, 1e6),
+    "stages_2560": (lambda: _inputs(128, 2560, 8), 60.0),
+    "stages_4608": (lambda: _inputs(128, 4608, 9), 1e6),  # every valid pair gated in
+}
+
+RAGGED_CASES = {
+    "k2_1001": (lambda: _inputs(200, 1001, 20), 80.0),
+    "k1_1003_k2_2049": (lambda: _inputs(1003, 2049, 21), 60.0),
+    "k1_1": (lambda: _inputs(1, 1024, 22, invalid=0.0), 1e6),
+    "k2_1": (lambda: _inputs(1000, 1, 23, invalid=0.0), 1e6),
+    "k1_1_k2_1": (lambda: _inputs(1, 1, 24, invalid=0.0), 1e6),
 }
 
 
@@ -71,9 +87,9 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(RAGGED_CASES))
 def test_kernel_equals_plain_version(card, case):
-    make, r = CASES[case]
+    make, r = {**CASES, **RAGGED_CASES}[case]
     x = _on_card(make())
     args = (x["d1"], x["uv1"], x["v1"], x["d2"], x["uv2"], x["v2"], r)
     before = TH.hamming_nn_top2.launches

@@ -15,7 +15,7 @@ from monocular_visual_odometry_tpu.ops import matching as JM
 from monocular_visual_odometry_tpu.ops.pallas.hamming import hamming_nn_top2 as jax_kernel
 from monocular_visual_odometry_tpu_torch.ops import matching as TM
 from monocular_visual_odometry_tpu_torch.ops.cuda import hamming as TH
-from test_torch_cuda import CASES
+from test_torch_cuda import CASES, RAGGED_CASES
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -34,6 +34,25 @@ def test_reference_matches_jax_kernel(case):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=what)
     if case == "forced_tie":
         assert (got[0] == got[1]).all() and (got[2] < 128).all()
+
+
+@pytest.mark.parametrize("case", sorted(RAGGED_CASES))
+def test_reference_matches_jax_xla_route_on_ragged_shapes(case):
+    """Shapes the JAX kernel does not take, against the JAX package's XLA
+    route: the distance matrix, the radius mask, then the three reductions."""
+    make, r = RAGGED_CASES[case]
+    x = make()
+    j = {k: jnp.asarray(v) for k, v in x.items() if v is not None}
+    d = JM.hamming_matrix(j["d1"], j["d2"], j["v1"], j["v2"])
+    r2 = JM.pixel_dist2_matrix(j["uv1"], j["uv2"])
+    rj = jnp.float32(r)
+    want = JM.top2_min(jnp.where(r2 <= rj * rj, d, jnp.float32(1e9)))
+    t = {k: None if v is None else torch.from_numpy(np.array(v)) for k, v in x.items()}
+    got = TH.hamming_nn_top2(t["d1"], t["uv1"], t["v1"], t["d2"], t["uv2"], t["v2"], r)
+    for g, w, what in zip(got, want, ("best", "second", "idx")):
+        assert g.shape == w.shape, what
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=what)
+    assert (got[0] < 1e9).any()
 
 
 def test_unpack_pm1_matches_jax():
