@@ -23,12 +23,24 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    (the same plus staging the whole train set, no popcounts), the main
    path's r (all of it);
 4. main path: renders the 150-frame synthetic benchmark in memory and runs the
-   port's ``VOEngine`` (default config at full width, BA off) on ``cuda``;
-   checks that it reaches tracking, fails tracking on at most 5 frames, keeps
-   the Sim(3) ATE under 3% of the path length, and that every kernel of the
-   path launched (counts reset just before the run, read just after);
-   then profiles a window of steady tracking frames with ``torch.profiler``
-   and prints the device-busy share and the kernels that take the most time;
+   port's ``VOEngine`` (default config at full width, windowed BA on) on
+   ``cuda``; checks that it reaches tracking, fails tracking on at most 5
+   frames, keeps the Sim(3) ATE under 3% of the path length, that every
+   kernel of the path launched once per ``match_features`` call and
+   ``ba_update_state`` once per tracking frame whose tracking held (counts
+   reset just before the run, read just after);
+   4a. the same with BA off, for the fps beside BA on in this call;
+   4b. profiles a window of steady tracking frames (BA on) with
+   ``torch.profiler`` and prints the device-busy share and the kernels that
+   take the most time;
+   4c. runs one ``ba_update_state`` on the state after that window under
+   ``torch.cuda.set_sync_debug_mode("error")`` (the LM never waits on the
+   host), holds it against the same call on a CPU copy of the state, times
+   it with CUDA events and counts its device kernels;
+   4d. runs the five-point configuration (``essential_minimal="5pt"``, BA
+   on) over the 150 frames with the checks of phase 4 (the 3% ATE budget is
+   one of the whole path; each run also prints its ATE over the first 60
+   frames, which reads higher);
 5. prints one JSON line describing the kernels, then, as the last line, the
    device JSON.
 """
@@ -48,11 +60,16 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 150
 H, W = 480, 640
 PROFILE_FROM, PROFILE_FRAMES = 40, 20  # a steady tracking window
+WARM_FRAMES = 10         # frames of a throw-away engine per config, to reach BA
+BA_TOL = 1e-4            # ba_update_state, card against CPU (tests/test_torch_cuda.py)
+EARLY_FRAMES = 60        # also read the ATE over these first frames: the 3% budget
+                         # is one of the whole path, and a short run reads higher
 # popcount throughput per SM per clock, compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput table)
 POPC_PER_SM_CLK = 16
@@ -68,6 +85,18 @@ DESIGN = ("train set staged in shared memory by 1-D bulk async copies on mbarrie
           "stages in a 2-buffer ring; one warp per query, ceil(K1/SMs) queries per "
           "block (at most 16); a lane gates 16 point pairs into a bit mask, then "
           "popcounts only the gated pairs; union-gate and single-gate kernels")
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the aten ops dispatched inside the ``with`` block."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
 
 
 def _nvidia_smi(query: str) -> str:
@@ -181,6 +210,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from monocular_visual_odometry_tpu_torch.data import synthetic as syn
+    from monocular_visual_odometry_tpu_torch.models import ba as BA
     from monocular_visual_odometry_tpu_torch.models import state as S
     from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
     from monocular_visual_odometry_tpu_torch.ops.cuda import build
@@ -323,77 +353,109 @@ def main() -> int:
         print(f"kernel hamming_nn_top2 {tag} split by input (device): one train point "
               f"{fmt(one_ms)}, r=0 {fmt(r0_ms)}, r={r} {fmt(ms)}", flush=True)
 
-    # ---- 4. main path -----------------------------------------------------
+    # ---- 4. main path: the default config (BA on), then BA off, then 5pt ---
     t0 = time.perf_counter()
     frames, gt = syn.render_sequence_arrays(N_FRAMES, seed=0, height=H, width=W,
                                             translation_step=0.04)
     print(f"rendered {N_FRAMES} frames in {time.perf_counter() - t0:.1f} s", flush=True)
     cfg = VOConfig()
-    cfg = cfg.replace(ba=dataclasses.replace(cfg.ba, enabled=False))
-    warm = VOEngine(cfg, H, W, seed=0, device="cuda")  # library init off the clock
-    for f in frames[:4:3]:
-        warm.add_frame(f)
-    eng = VOEngine(cfg, H, W, seed=0, device="cuda")
+    cfg_no_ba = cfg.replace(ba=dataclasses.replace(cfg.ba, enabled=False))
+    cfg_5pt = cfg.replace(ransac=dataclasses.replace(cfg.ransac, essential_minimal="5pt"))
+    for c in (cfg, cfg_5pt):  # library init (cuSOLVER, cuBLAS) off the clock
+        warm = VOEngine(c, H, W, seed=0, device="cuda")
+        for f in frames[:WARM_FRAMES]:
+            warm.add_frame(f)
     torch.cuda.synchronize()
 
-    HM.hamming_nn_top2.launches = 0
-    est, n_fail, n_match_calls, stage, per_frame = [], 0, 0, S.STAGE_BLANK, []
-    t0 = time.perf_counter()
-    for f in frames:
-        before = HM.hamming_nn_top2.launches
-        out = eng.add_frame(f)
-        per_frame.append(HM.hamming_nn_top2.launches - before)
-        n_match_calls += {S.STAGE_BLANK: 0, S.STAGE_INITIALIZING: 1}.get(
-            stage, 1 + int(bool(out.is_keyframe)))
-        stage = int(out.stage)
-        if stage == S.STAGE_TRACKING and not bool(out.tracking_ok):
-            n_fail += 1
-        est.append(out.T_w_c.numpy())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = HM.hamming_nn_top2.launches
+    def run_path(name, c, n):
+        """Drive a fresh engine over the first n frames; the kernel and BA
+        counts are set to 0 just before and read just after."""
+        eng = VOEngine(c, H, W, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        HM.hamming_nn_top2.launches = 0
+        BA.ba_update_state.calls = 0
+        est, n_fail, n_match, n_ba, stage, per_frame = [], 0, 0, 0, S.STAGE_BLANK, []
+        t0 = time.perf_counter()
+        for f in frames[:n]:
+            before = HM.hamming_nn_top2.launches
+            out = eng.add_frame(f)
+            per_frame.append(HM.hamming_nn_top2.launches - before)
+            n_match += {S.STAGE_BLANK: 0, S.STAGE_INITIALIZING: 1}.get(
+                stage, 1 + int(bool(out.is_keyframe)))
+            n_ba += int(c.ba.enabled and stage == S.STAGE_TRACKING and bool(out.tracking_ok))
+            stage = int(out.stage)
+            if stage == S.STAGE_TRACKING and not bool(out.tracking_ok):
+                n_fail += 1
+            est.append(out.T_w_c.numpy())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r = dict(name=name, frames=n, wall_s=wall, fps=n / wall, stage=stage, n_fail=n_fail,
+                 launches=HM.hamming_nn_top2.launches, match_calls=n_match,
+                 ba_calls=BA.ba_update_state.calls, ba_expected=n_ba,
+                 ba_rejected=int(out.ba_rejected_total), per_frame_max=max(per_frame))
+        est = np.stack(est)
+        if not np.isfinite(est).all():
+            raise AssertionError(f"{name}: non-finite pose in the trajectory")
+        r["est"] = est
+        r["ate"] = metrics.ate_rmse(est, gt[:n])
+        r["length"] = metrics.trajectory_length(gt[:n])
+        early_ate = metrics.ate_rmse(est[:EARLY_FRAMES], gt[:EARLY_FRAMES])
+        early_len = metrics.trajectory_length(gt[:EARLY_FRAMES])
+        print(f"{name}: {n} frames in {wall:.2f} s = {r['fps']:.2f} fps; final stage {stage}, "
+              f"tracking failures {n_fail}, Sim3 ATE {r['ate']:.4f} on a {r['length']:.3f} "
+              f"path ({100 * r['ate'] / r['length']:.2f}%; over the first {EARLY_FRAMES} frames "
+              f"{early_ate:.4f} on {early_len:.3f}, {100 * early_ate / early_len:.2f}%), "
+              f"kernel launches {r['launches']}, "
+              f"match_features calls {n_match} (max {r['per_frame_max']} per frame), "
+              f"ba_update_state calls {r['ba_calls']} (tracking frames with tracking_ok "
+              f"{n_ba}), ba_rejected_total {r['ba_rejected']}", flush=True)
+        if stage != S.STAGE_TRACKING:
+            raise AssertionError(f"{name}: the VO never reached tracking")
+        if n_fail > 5:
+            raise AssertionError(f"{name}: {n_fail} tracking failures (budget 5)")
+        if not r["ate"] < 0.03 * r["length"]:
+            raise AssertionError(f"{name}: ATE {r['ate']:.4f} is not below 3% of the path "
+                                 f"length {r['length']:.3f}")
+        if r["launches"] <= 0 or r["launches"] != n_match:
+            raise AssertionError(f"{name}: hamming_nn_top2 launched {r['launches']} times, "
+                                 f"expected {n_match} (one per match_features call)")
+        if r["ba_calls"] != n_ba or (c.ba.enabled and n_ba == 0):
+            raise AssertionError(f"{name}: ba_update_state ran {r['ba_calls']} times, expected "
+                                 f"{n_ba} (one per tracking frame whose tracking held)")
+        return r
 
-    est = np.stack(est)
-    if not np.isfinite(est).all():
-        raise AssertionError("non-finite pose in the trajectory")
-    ate = metrics.ate_rmse(est, gt)
-    length = metrics.trajectory_length(gt)
-    print(f"main path: {N_FRAMES} frames in {wall:.2f} s = {N_FRAMES / wall:.2f} fps; "
-          f"final stage {stage}, tracking failures {n_fail}, Sim3 ATE {ate:.4f} on a "
-          f"{length:.3f} path ({100 * ate / length:.2f}%), kernel launches {launches}, "
-          f"match_features calls {n_match_calls}, launches per frame max {max(per_frame)} "
-          f"mean {launches / N_FRAMES:.3f}", flush=True)
-    if stage != S.STAGE_TRACKING:
-        raise AssertionError("the VO never reached tracking")
-    if n_fail > 5:
-        raise AssertionError(f"{n_fail} tracking failures (budget 5)")
-    if not ate < 0.03 * length:
-        raise AssertionError(f"ATE {ate:.4f} is not below 3% of the path length {length:.3f}")
-    if launches <= 0 or launches != n_match_calls:
-        raise AssertionError(f"hamming_nn_top2 launched {launches} times, expected "
-                             f"{n_match_calls} (one per match_features call)")
+    main = run_path("main path (default config, BA on)", cfg, N_FRAMES)
+    no_ba = run_path("4a BA off (cfg3)", cfg_no_ba, N_FRAMES)
+    print(f"4a: in this call, BA on {main['fps']:.2f} fps against BA off {no_ba['fps']:.2f} "
+          f"fps: {1e3 * (main['wall_s'] - no_ba['wall_s']) / max(main['ba_calls'], 1):.2f} ms "
+          f"more per BA call", flush=True)
 
     # ---- 4b. where a tracking frame's time goes (profiler window) ----------
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def device_kernels(prof):
+        return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0), key=lambda r: -r[1])
+
     prof_eng = VOEngine(cfg, H, W, seed=0, device="cuda")
     for f in frames[:PROFILE_FROM]:
         prof_eng.add_frame(f)
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for f in frames[PROFILE_FROM:PROFILE_FROM + PROFILE_FRAMES]:
             prof_eng.add_frame(f)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels_by_time = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0),
-        key=lambda r: -r[1])
+    kernels_by_time = device_kernels(prof)
     busy_ms = sum(ms for _, ms, _ in kernels_by_time)
+    n_kernels = sum(c for _, _, c in kernels_by_time)
     print(f"profile: {PROFILE_FRAMES} tracking frames ({PROFILE_FROM}..."
-          f"{PROFILE_FROM + PROFILE_FRAMES - 1}), wall {prof_wall_ms:.1f} ms under the profiler, "
-          f"device busy {busy_ms:.1f} ms ({100 * busy_ms / prof_wall_ms:.1f}%), "
-          f"{sum(c for _, _, c in kernels_by_time)} device kernels", flush=True)
+          f"{PROFILE_FROM + PROFILE_FRAMES - 1}, BA on), wall {prof_wall_ms:.1f} ms under the "
+          f"profiler, device busy {busy_ms:.1f} ms ({100 * busy_ms / prof_wall_ms:.1f}%), "
+          f"{n_kernels} device kernels ({n_kernels / PROFILE_FRAMES:.0f} per frame)", flush=True)
     for name, ms, count in kernels_by_time[:8]:
         print(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}", flush=True)
     ham_ms = sum(ms for n, ms, _ in kernels_by_time if "hamming_nn_top2" in n)
@@ -402,6 +464,50 @@ def main() -> int:
           f"({ham_ms / max(ham_n, 1):.4f} ms each, {100 * ham_ms / max(busy_ms, 1e-9):.2f}% "
           f"of device busy time)", flush=True)
 
+    # ---- 4c. one ba_update_state on the state after frame PROFILE_FROM+PROFILE_FRAMES
+    st = prof_eng.state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any wait on the stream raises
+    try:
+        got = BA.ba_update_state(cfg, prof_eng.cam, st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    want = BA.ba_update_state(cfg, prof_eng.cam, S.state_to(st, "cpu"))
+    ba_err = max(float((getattr(got, f).cpu() - getattr(want, f)).abs().max())
+                 for f in ("T_w_c", "ref_pose", "last_keyframe_pose"))
+    ba_err = max(ba_err, float((got.ring.poses.cpu() - want.ring.poses).abs().max()),
+                 float((got.map.pts.cpu() - want.map.pts).abs().max()))
+    ba_ms = _events_ms(lambda: BA.ba_update_state(cfg, prof_eng.cam, st), 20)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        BA.ba_update_state(cfg, prof_eng.cam, st)
+    torch.cuda.synchronize()
+    ba_wall_ms = (time.perf_counter() - t0) * 1e3 / 20
+    with torch.profiler.profile(activities=acts) as prof:
+        BA.ba_update_state(cfg, prof_eng.cam, st)
+        torch.cuda.synchronize()
+    ba_kernels = device_kernels(prof)
+    with _OpCount() as ops:  # the host's side: aten ops dispatched, views included
+        BA.ba_update_state(cfg, prof_eng.cam, st)
+    ba_busy = sum(ms for _, ms, _ in ba_kernels)
+    ba_n = sum(c for _, _, c in ba_kernels)
+    share = ba_ms * main["ba_calls"] / (1e3 * main["wall_s"])
+    print(f"4c: ba_update_state after frame {PROFILE_FROM + PROFILE_FRAMES}: ran under "
+          f"set_sync_debug_mode('error') without a sync; card against CPU max abs diff "
+          f"{ba_err:.3e} (tolerance {BA_TOL}); {ba_ms:.3f} ms per call (CUDA events over 20 "
+          f"calls, host included; host clock {ba_wall_ms:.3f} ms), {ops.n} aten ops "
+          f"dispatched and {ba_n} device kernels per call, device busy {ba_busy:.3f} "
+          f"ms per call; x {main['ba_calls']} calls = {100 * share:.1f}% of the main path's "
+          f"wall time", flush=True)
+    if not ba_err <= BA_TOL:
+        raise AssertionError(f"ba_update_state on the card differs from the CPU by {ba_err}")
+
+    # ---- 4d. the five-point configuration ----------------------------------
+    five = run_path("4d five-point (essential_minimal='5pt', BA on)", cfg_5pt, N_FRAMES)
+    print(f"4d: largest pose difference from the main path's trajectory "
+          f"{float(np.abs(five['est'] - main['est']).max()):.3e}", flush=True)
+
     # ---- 5. kernels line and device line ---------------------------------
     track = shape_rows[1]
     kernels = [{
@@ -409,7 +515,7 @@ def main() -> int:
         "route": "cuda",
         "source": "monocular_visual_odometry_tpu_torch/csrc/hamming_nn_top2.cu",
         "replaces": "monocular_visual_odometry_tpu/ops/pallas/hamming.py:125",
-        "launches": launches,
+        "launches": main["launches"],
         "exact": True,
         "max_abs_err": max_err,
         "ms": track["ms"],

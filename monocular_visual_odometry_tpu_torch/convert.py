@@ -1,11 +1,11 @@
-"""Carry a VO state and a config across from the JAX package.
+"""Carry a VO state, a BA problem and a config across from the JAX package.
 
-The engine has no weights; what a run carries is its :class:`VOState` and
-its :class:`VOConfig`. These helpers take both as plain Python and numpy
-values (the JAX side flattens its records with ``jax.device_get`` and
-``_asdict``, and its config with ``dataclasses.asdict``), so that both
-packages can be started from the same mid-sequence state. Nothing here
-imports JAX.
+The engine has no weights; what a run carries is its :class:`VOState`, the
+windowed :class:`BAProblem` built from it, and its :class:`VOConfig`. These
+helpers take them as plain Python and numpy values (the JAX side flattens
+its records with ``jax.device_get`` and ``_asdict``, and its config with
+``dataclasses.asdict``), so that both packages can be started from the same
+mid-sequence state or solve the same problem. Nothing here imports JAX.
 
 The one field without a counterpart is the random key: the JAX state holds
 a ``PRNGKey`` (two uint32 words), the port an integer key. The words are
@@ -21,6 +21,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from monocular_visual_odometry_tpu_torch.models.ba import BAProblem
 from monocular_visual_odometry_tpu_torch.models.state import FrameRing, MapState, VOState
 from monocular_visual_odometry_tpu_torch.ops.features import FrameFeatures
 from monocular_visual_odometry_tpu_torch.utils import config as C
@@ -41,14 +42,19 @@ def _key_from_words(words: np.ndarray) -> int:
     return key >> 1
 
 
+def _device(device, who: str) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: device 'cuda' requested but no CUDA device is "
+                           "available")
+    return dev
+
+
 def state_from_numpy(d: Mapping[str, Any], device="cuda") -> VOState:
     """Build a port :class:`VOState` from a JAX ``VOState`` flattened to
     numpy: a mapping from field name to array, with the nested records
     (``ref_feats``, ``map``, ``ring``) given as mappings or NamedTuples."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("state_from_numpy: device 'cuda' requested but no CUDA "
-                           "device is available")
+    dev = _device(device, "state_from_numpy")
     d = _fields(d)
 
     def tensor(a):
@@ -66,6 +72,15 @@ def state_from_numpy(d: Mapping[str, Any], device="cuda") -> VOState:
         else:
             out[name] = tensor(d[name])
     return VOState(**out)
+
+
+def problem_from_numpy(d: Mapping[str, Any], device="cuda") -> BAProblem:
+    """Build a port :class:`BAProblem` from a JAX ``BAProblem`` flattened to
+    numpy (a mapping from field name to array, or the NamedTuple itself)."""
+    dev = _device(device, "problem_from_numpy")
+    d = _fields(d)
+    return BAProblem(**{f: torch.from_numpy(np.array(d[f])).to(dev)
+                        for f in BAProblem._fields})
 
 
 def state_to_numpy(st: VOState) -> dict[str, Any]:

@@ -126,6 +126,14 @@ class StepOutput(NamedTuple):
     n_candidates: torch.Tensor
 
 
+def state_to(st: VOState, device) -> VOState:
+    """A copy of the state with every tensor on ``device`` but ``rng``, which
+    stays on the CPU."""
+    def move(v):
+        return type(v)(*(t.to(device) for t in v)) if hasattr(v, "_fields") else v.to(device)
+    return VOState(**{k: v if k == "rng" else move(v) for k, v in st._asdict().items()})
+
+
 def empty_features(k: int, device="cuda") -> FrameFeatures:
     return FrameFeatures(
         kpts=torch.zeros((k, 2), dtype=torch.float32, device=device),

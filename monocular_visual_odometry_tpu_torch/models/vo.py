@@ -1,14 +1,15 @@
-"""The VO pipeline without bundle adjustment: per-frame stages and the
+"""The VO pipeline: per-frame stages, windowed bundle adjustment and the
 host-side engine.
 
 Port of ``monocular_visual_odometry_tpu.models.vo``. The JAX package runs
 the whole frame as one jitted call and selects between branches with
 masked selects (``lax.switch`` / ``lax.cond`` / ``_tree_select``). PyTorch
-runs eagerly, so here the stage dispatch, the init quality gate and the
-keyframe decision are host branches on values read back from the device;
-each branch computes what the selected side of the JAX select computes.
-Windowed BA (``models/ba.py``) is not ported yet: :class:`VOEngine`
-refuses a config with ``ba.enabled``.
+runs eagerly, so here the stage dispatch, the init quality gate, the BA
+gate on ``tracking_ok`` and the keyframe decision are host branches on
+values read back from the device; each branch computes what the selected
+side of the JAX select computes. A tracking frame runs tracking, then
+(``cfg.ba.enabled`` and tracking held) ``models/ba.py::ba_update_state``,
+then the keyframe update, which sees the corrected pose.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from monocular_visual_odometry_tpu_torch.models import ba
 from monocular_visual_odometry_tpu_torch.models import state as S
 from monocular_visual_odometry_tpu_torch.ops import lie, matching, pnp, twoview
 from monocular_visual_odometry_tpu_torch.ops.camera import Camera, cam2pixel, in_frame
@@ -387,18 +389,10 @@ def _keyframe_update_impl(cfg: VOConfig, cam: Camera, st: S.VOState,
 # ---------------------------------------------------------------------------
 
 
-def _refuse_ba(cfg: VOConfig) -> None:
-    if cfg.ba.enabled:
-        raise NotImplementedError(
-            "windowed BA (models/ba.py) is not ported yet: it is item 1 of "
-            "'Still to port' in ROADMAP.md. Use cfg.ba.enabled=False.")
-
-
 def step(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
          *, height: int, width: int):
     """One frame through the stage its state is in (the counterpart of the
-    JAX ``step_fused`` without BA). Returns (new state, StepOutput)."""
-    _refuse_ba(cfg)
+    JAX ``step_fused`` on one device). Returns (new state, StepOutput)."""
     stage = int(st.stage)
     if stage == S.STAGE_BLANK:
         return _step_first_impl(cfg, cam, st, img)
@@ -406,6 +400,8 @@ def step(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
         return _step_init_impl(cfg, cam, st, img)
     new, out, feats, curr_mp = _step_track_impl(cfg, cam, st, img,
                                                 height=height, width=width)
+    if cfg.ba.enabled and bool(out.tracking_ok):
+        new = ba.ba_update_state(cfg, cam, new)
     if bool(out.is_keyframe):
         new = _keyframe_update_impl(cfg, cam, new, feats, curr_mp,
                                     height=height, width=width)
@@ -419,7 +415,6 @@ class VOEngine:
 
     def __init__(self, cfg: VOConfig, height: int, width: int, seed: int = 0,
                  device="cuda"):
-        _refuse_ba(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VOEngine: device 'cuda' requested but no CUDA device "

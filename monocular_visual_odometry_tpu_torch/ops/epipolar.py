@@ -1,9 +1,9 @@
 """Two-view epipolar geometry: E/H estimation, pose recovery, triangulation.
 
-Port of ``monocular_visual_odometry_tpu.ops.epipolar`` (8-point path).
-Every RANSAC entry point takes an integer ``key`` for its draws and, for
-tests, explicit minimal-set indices ``idx`` that override the draws.
-The five-point minimal solver (``minimal="5pt"``) is not ported yet.
+Port of ``monocular_visual_odometry_tpu.ops.epipolar``. Every RANSAC entry
+point takes an integer ``key`` for its draws and, for tests, explicit
+minimal-set indices ``idx`` that override the draws; the five-point path
+(``minimal="5pt"``, ``ops/fivepoint.py``) also takes its basis remix ``G``.
 """
 
 from __future__ import annotations
@@ -14,10 +14,12 @@ import numpy as np
 import torch
 
 from monocular_visual_odometry_tpu_torch.ops import lie
+from monocular_visual_odometry_tpu_torch.ops.fivepoint import five_point_essential
 from monocular_visual_odometry_tpu_torch.ops.ransac import (
     hartley_normalize,
     nullspace,
     sample_minimal_sets,
+    split_key,
 )
 
 _EPS = 1e-9
@@ -86,11 +88,14 @@ class RansacModel(NamedTuple):
     n_inliers: torch.Tensor    # scalar
 
 
-def _consensus_refit(x1, x2, valid, hyps, msac, refit, min_support, cap):
-    """Best minimal hypothesis, then 4 rounds of two batched refit chains
-    (one seeded by the best hypothesis's gate, one by all valid matches),
-    keeping whichever model scores best. Returns the model."""
+def _consensus_refit(x1, x2, valid, hyps, msac, refit, min_support, cap, ok=None):
+    """Best minimal hypothesis (among those with ``ok``, if given), then 4
+    rounds of two batched refit chains (one seeded by the best hypothesis's
+    gate, one by all valid matches), keeping whichever model scores best.
+    Returns the model."""
     scores, d2 = msac(hyps)
+    if ok is not None:
+        scores = torch.where(ok, scores, torch.full_like(scores, float("inf")))
     best = torch.argmin(scores)
     M_best, s_best = hyps[best], scores[best]
     inl_cur = torch.stack([(d2[best] < cap) & valid, valid])
@@ -110,19 +115,31 @@ def _consensus_refit(x1, x2, valid, hyps, msac, refit, min_support, cap):
 def estimate_essential(
     x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor, key: int,
     *, threshold: float, n_hypotheses: int = 512, minimal: str = "8pt",
-    idx: Optional[torch.Tensor] = None,
+    idx: Optional[torch.Tensor] = None, G: Optional[torch.Tensor] = None,
 ) -> RansacModel:
     """RANSAC essential matrix from normalized-plane correspondences with
-    MSAC scoring and a consensus refit. ``threshold`` in normalized units."""
-    if minimal != "8pt":
-        raise NotImplementedError(
-            "essential_minimal='5pt' needs ops/fivepoint.py, which is not "
-            "ported yet (see ROADMAP.md)")
+    MSAC scoring and a consensus refit. ``threshold`` in normalized units.
+
+    ``minimal="8pt"``: ``n_hypotheses`` eight-point samples. ``"5pt"``:
+    ``max(n_hypotheses // 4, 8)`` five-point samples of up to 8 candidates
+    each; ``key`` splits into the sample draw and the basis remix, as
+    ``jax.random.split`` does in the reference, and ``idx`` / ``G``
+    override them."""
+    if minimal not in ("8pt", "5pt"):
+        raise ValueError(f"estimate_essential: unknown minimal solver {minimal!r}")
     th = np.float32(threshold)
     cap = float(np.float32(2.0) * (th * th))
-    if idx is None:
-        idx = sample_minimal_sets(key, valid, n_hypotheses, 8)
-    Es = _eight_point(x1[idx], x2[idx])
+    ok = None
+    if minimal == "5pt":
+        k_s, k_b = split_key(key)
+        if idx is None:
+            idx = sample_minimal_sets(k_s, valid, max(n_hypotheses // 4, 8), 5)
+        Es, ok = five_point_essential(x1[idx], x2[idx], k_b, G=G)
+        Es, ok = Es.reshape(-1, 3, 3), ok.reshape(-1)
+    else:
+        if idx is None:
+            idx = sample_minimal_sets(key, valid, n_hypotheses, 8)
+        Es = _eight_point(x1[idx], x2[idx])
 
     def msac(E):
         d2 = _sym_epipolar_dist2(E, x1, x2)
@@ -130,7 +147,7 @@ def estimate_essential(
                                      torch.zeros_like(d2)), dim=-1), d2
 
     E_best = _consensus_refit(x1, x2, valid, Es, msac,
-                              lambda w: _weighted_eight_point(x1, x2, w), 8, cap)
+                              lambda w: _weighted_eight_point(x1, x2, w), 8, cap, ok)
     inl_best = (_sym_epipolar_dist2(E_best, x1, x2) < cap) & valid
     return RansacModel(E_best, inl_best, torch.sum(inl_best))
 

@@ -128,8 +128,10 @@ def rt_to_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (1, 4))
+    # [0, 0, 0, 1] from fills: a tensor built from host data would be copied
+    # over and synchronise the stream
+    bottom = torch.cat([torch.zeros(batch + (1, 3), dtype=R.dtype, device=R.device),
+                        torch.ones(batch + (1, 1), dtype=R.dtype, device=R.device)], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 
 

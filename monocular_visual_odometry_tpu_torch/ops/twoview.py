@@ -44,20 +44,21 @@ def estimate_relative_pose(
     n_hypotheses: int = 512, sigma: float = 1.0,
     use_reference_selection: bool = False, essential_minimal: str = "8pt",
     idx_e: Optional[torch.Tensor] = None, idx_h: Optional[torch.Tensor] = None,
+    G_e: Optional[torch.Tensor] = None,
 ) -> TwoViewResult:
     """E/H dual estimation + model selection on matched pixel
     correspondences. ``key`` is split into the E and H draws as
     ``jax.random.split`` is in the reference; ``idx_e`` / ``idx_h``
-    override the draws."""
+    override the draws, and ``G_e`` the five-point basis remix."""
     x1 = pixel2cam_norm_plane(uv1, cam)
     x2 = pixel2cam_norm_plane(uv2, cam)
-    K = cam.K(uv1.device)
+    K = cam.K(uv1.device).to(uv1.dtype)
     th_n = float(np.float32(threshold_px) / _focal(cam))
     k_e, k_h = split_key(key)
 
     e_model = epi.estimate_essential(x1, x2, valid, k_e, threshold=th_n,
                                      n_hypotheses=n_hypotheses,
-                                     minimal=essential_minimal, idx=idx_e)
+                                     minimal=essential_minimal, idx=idx_e, G=G_e)
     R_e, t_e, _ = epi.recover_pose_from_E(e_model.model, x1, x2, e_model.inliers)
 
     h_model = epi.estimate_homography(uv1, uv2, valid, k_h,

@@ -47,7 +47,7 @@ class RansacConfig:
 
     threshold_px: float = 1.0
     n_hypotheses: int = 256
-    essential_minimal: str = "8pt"       # "5pt" is not ported yet
+    essential_minimal: str = "8pt"       # or "5pt": five-point minimal samples
     pnp_n_hypotheses: int = 256
     pnp_reproj_threshold_px: float = 2.0
     pnp_min_inliers: int = 5
@@ -83,8 +83,8 @@ class TrackingConfig:
 
 @dataclass(frozen=True)
 class BAConfig:
-    """Windowed bundle adjustment (not ported yet: ``enabled`` must be
-    False for the port's engine)."""
+    """Windowed bundle adjustment (``models/ba.py``). ``deterministic``
+    runs the LM's reductions in float64."""
 
     enabled: bool = True
     window: int = 5
