@@ -10,7 +10,10 @@ mid-sequence state or solve the same problem. Nothing here imports JAX.
 The one field without a counterpart is the random key: the JAX state holds
 a ``PRNGKey`` (two uint32 words), the port an integer key. The words are
 folded into a 63-bit integer, so equal keys carry over to equal keys; the
-draws made from them differ between the packages all the same.
+draws made from them differ between the packages all the same. A batched
+JAX state (``jax.vmap``'s input: a leading [B] on every field, keys
+[B,2]) carries over with ``batched=True``, each stream's key folded on its
+own, as the port's :func:`models.state.stack_states` of the B streams.
 """
 
 from __future__ import annotations
@@ -50,10 +53,11 @@ def _device(device, who: str) -> torch.device:
     return dev
 
 
-def state_from_numpy(d: Mapping[str, Any], device="cuda") -> VOState:
+def state_from_numpy(d: Mapping[str, Any], device="cuda", batched: bool = False) -> VOState:
     """Build a port :class:`VOState` from a JAX ``VOState`` flattened to
     numpy: a mapping from field name to array, with the nested records
-    (``ref_feats``, ``map``, ``ring``) given as mappings or NamedTuples."""
+    (``ref_feats``, ``map``, ``ring``) given as mappings or NamedTuples.
+    ``batched``: the state of B streams, ``rng`` a [B] key per stream."""
     dev = _device(device, "state_from_numpy")
     d = _fields(d)
 
@@ -64,7 +68,8 @@ def state_from_numpy(d: Mapping[str, Any], device="cuda") -> VOState:
     for name in VOState._fields:
         if name == "rng":
             key = np.asarray(d[name])
-            k = _key_from_words(key) if key.dtype == np.uint32 else int(key)
+            fold = _key_from_words if key.dtype == np.uint32 else int
+            k = [fold(w) for w in key] if batched else fold(key)
             out[name] = torch.tensor(k, dtype=torch.int64)
         elif name in _NESTED:
             rec = _fields(d[name])

@@ -63,6 +63,15 @@
 //   second query position (the wrapper then passes uv1 twice) a kernel
 //   without the union gate runs.
 // - A wait that never completes traps (a fault) instead of hanging the card.
+// - Batched launch: B independent streams, each with its own [K1] queries
+//   and [K2] train set, stacked contiguously ([B, K1, ...] / [B, K2, ...]).
+//   blockIdx.y selects the stream and offsets every base pointer; blocks of
+//   one stream stage only that stream's train set. The queries per block are
+//   sized over all B*K1 queries (ceil(B*K1 / SMs), at most 16), so at B = 1
+//   this is the single-stream launch above, and at B = 8 on the tracking
+//   shape 16-warp blocks, 96 per stream, each staging its stream's train set
+//   once. A stream's bulk copies need its train set to start 16-byte aligned:
+//   the wrapper pads K2 to a multiple of 16 with invalid points when B > 1.
 
 #include <algorithm>
 #include <cstdint>
@@ -240,7 +249,7 @@ __device__ __forceinline__ uint32_t gate_mask(const Stage& st, int lane, float2 
   return hits;
 }
 
-// Block: one warp per query (blockDim.x / 32 queries).
+// Block: one warp per query (blockDim.x / 32 queries) of stream blockIdx.y.
 template <bool kUnion>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 hamming_nn_top2_kernel(const uint8_t* __restrict__ desc1,
@@ -256,6 +265,19 @@ hamming_nn_top2_kernel(const uint8_t* __restrict__ desc1,
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // bars[2*b] positions, [2*b+1] descriptors
   uint8_t* bufs = smem + kBarBytes;
+
+  // this block's stream: its queries, train set and outputs
+  const size_t q0 = static_cast<size_t>(blockIdx.y) * k1, t0 = static_cast<size_t>(blockIdx.y) * k2;
+  desc1 += q0 * 32;
+  uv1 += q0 * 2;
+  uv1_alt += q0 * 2;
+  valid1 += q0;
+  best_out += q0;
+  second_out += q0;
+  idx_out += q0;
+  desc2 += t0 * 32;
+  uv2 += t0 * 2;
+  valid2 += t0;
 
   const int n_stages = (k2 + kStage - 1) / kStage;
   const int n_bufs = min(n_stages, 2);
@@ -348,16 +370,19 @@ hamming_nn_top2_kernel(const uint8_t* __restrict__ desc1,
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() of the launch (0 = success).
+// Plain C entry point (loaded with ctypes): `batch` streams of k1 queries and
+// k2 train points each, stacked contiguously (batch = 1: one call). Launches
+// on `stream`, does not synchronise, and returns cudaGetLastError() of the
+// launch (0 = success).
 extern "C" int hamming_nn_top2_launch(const uint8_t* desc1, const float* uv1,
                                       const float* uv1_alt,
                                       const uint8_t* valid1, int k1,
                                       const uint8_t* desc2, const float* uv2,
                                       const uint8_t* valid2, int k2, float r2,
                                       float* best, float* second, int* idx,
-                                      void* stream) {
-  if (k1 <= 0) return 0;
+                                      int batch, void* stream) {
+  if (k1 <= 0 || batch <= 0) return 0;
+  if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);  // gridDim.y
   // once per device: the SM count, and the kernels' dynamic shared memory
   // limit raised for two stage buffers (over the default 48 KB)
   static int n_sm[kMaxDevices] = {};
@@ -377,18 +402,20 @@ extern "C" int hamming_nn_top2_launch(const uint8_t* desc1, const float* uv1,
     if (err != cudaSuccess) return static_cast<int>(err);
     n_sm[dev] = sms;
   }
-  // one block per SM where K1 allows, so each SM stages the train set once
-  const int warps = std::min(kMaxWarps, (k1 + n_sm[dev] - 1) / n_sm[dev]);
+  // one block per SM where B*K1 allows, so each SM stages a train set once
+  const long long queries = static_cast<long long>(batch) * k1;
+  const int warps = static_cast<int>(
+      std::min<long long>(kMaxWarps, (queries + n_sm[dev] - 1) / n_sm[dev]));
   const int n_stages = (k2 + kStage - 1) / kStage;
   const int smem = kBarBytes + std::min(n_stages, 2) * kBufBytes;
-  const int blocks = (k1 + warps - 1) / warps;
+  const dim3 grid((k1 + warps - 1) / warps, batch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the wrapper passes uv1 as uv1_alt when the caller gave no second position
   if (uv1_alt == uv1)
-    hamming_nn_top2_kernel<false><<<blocks, warps * 32, smem, st>>>(
+    hamming_nn_top2_kernel<false><<<grid, warps * 32, smem, st>>>(
         desc1, uv1, uv1_alt, valid1, k1, desc2, uv2, valid2, k2, r2, best, second, idx);
   else
-    hamming_nn_top2_kernel<true><<<blocks, warps * 32, smem, st>>>(
+    hamming_nn_top2_kernel<true><<<grid, warps * 32, smem, st>>>(
         desc1, uv1, uv1_alt, valid1, k1, desc2, uv2, valid2, k2, r2, best, second, idx);
   return static_cast<int>(cudaGetLastError());
 }

@@ -142,12 +142,16 @@ def render_sequence_arrays(n_frames: int = 60, seed: int = 0,
                            height: int = 480, width: int = 640,
                            fx: float = 615.0, fy: float = 615.0,
                            cx: float = 320.0, cy: float = 240.0,
-                           translation_step: float = 0.04):
+                           translation_step: float = 0.04,
+                           span: tuple[int, int] | None = None):
     """The benchmark sequence in memory: (frames [N,H,W] uint8, GT poses
-    [N,4,4]); the same frames ``render_sequence`` writes to disk."""
+    [N,4,4]); the same frames ``render_sequence`` writes to disk. ``span``
+    (lo, hi) renders only frames lo..hi-1 (the poses stay all N), so that
+    parts of a sequence can be rendered in parallel."""
     planes = default_scene(seed)
     poses = make_trajectory(n_frames, seed, translation_step=translation_step)
     K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    lo, hi = span or (0, n_frames)
     frames = np.stack([render_frame(poses[i], planes, K, height, width)
-                       for i in range(n_frames)])
+                       for i in range(lo, hi)])
     return frames, poses

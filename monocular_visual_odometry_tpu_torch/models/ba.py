@@ -48,8 +48,8 @@ def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 def _used(pid: torch.Tensor, valid: torch.Tensor, m: int) -> torch.Tensor:
     """[m] bool: some valid observation links the point (scatter-OR)."""
     hits = torch.zeros(m, dtype=torch.int32, device=pid.device)
-    return hits.index_add_(0, pid.reshape(-1).to(torch.int64),
-                           valid.reshape(-1).to(torch.int32)) > 0
+    return hits.index_add(0, pid.reshape(-1).to(torch.int64),
+                          valid.reshape(-1).to(torch.int32)) > 0
 
 
 def gather_window(cfg: VOConfig, st: S.VOState,
@@ -257,8 +257,8 @@ def ba_solve(cfg: VOConfig, cam: Camera, prob: BAProblem):
             gp_obs = torch.einsum("wkai,wka->wki", J_p, Wr2).reshape(-1, 3)
             # scatter-adds are atomics on a card: f32 sums vary in the last
             # bits from run to run (cfg.ba.deterministic runs them in f64)
-            A = torch.zeros((M, 3, 3), dtype=dtype, device=dev).index_add_(0, flat_pid, Hpp_obs)
-            b_p = torch.zeros((M, 3), dtype=dtype, device=dev).index_add_(0, flat_pid, gp_obs)
+            A = torch.zeros((M, 3, 3), dtype=dtype, device=dev).index_add(0, flat_pid, Hpp_obs)
+            b_p = torch.zeros((M, 3), dtype=dtype, device=dev).index_add(0, flat_pid, gp_obs)
             # damping with a relative Tikhonov floor (see the JAX module)
             dmax = torch.clamp(torch.diagonal(A, dim1=-2, dim2=-1).amax(-1), min=1e-12)
             A = A + (lam + 1e-2 * dmax)[:, None, None] * eye3
@@ -267,7 +267,7 @@ def ba_solve(cfg: VOConfig, cam: Camera, prob: BAProblem):
 
             # camera-point coupling U[w,p] = sum_k Jc^T W Jp
             U_obs = torch.einsum("wkai,wkaj->wkij", JcW, J_p).reshape(-1, 6, 3)
-            U = torch.zeros((W * M, 6, 3), dtype=dtype, device=dev).index_add_(
+            U = torch.zeros((W * M, 6, 3), dtype=dtype, device=dev).index_add(
                 0, wk_idx, U_obs).reshape(W, M, 6, 3)
 
             # reduced camera system S = H_cc - U A^-1 U^T (coupled blocks)

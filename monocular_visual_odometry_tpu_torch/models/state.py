@@ -4,7 +4,9 @@ Port of ``monocular_visual_odometry_tpu.models.state``: the same fields and
 layouts as NamedTuples of tensors. One difference: ``VOState.rng`` is a
 0-d int64 tensor that stays on the CPU (an integer key, split per stage
 with ``ops.ransac.split_key``), in place of a JAX PRNG key, so drawing a
-stage's key never waits for the device.
+stage's key never waits for the device. A stack of B states
+(:func:`stack_states`, the batched step's input) has a leading ``[B]`` on
+every field, and its ``rng`` is a ``[B]`` int64 tensor on the CPU.
 """
 
 from __future__ import annotations
@@ -23,6 +25,19 @@ STAGE_TRACKING = 2
 
 def _eye4(device) -> torch.Tensor:
     return torch.eye(4, dtype=torch.float32, device=device)
+
+
+def put_row(a: torch.Tensor, slot, v) -> torch.Tensor:
+    """A copy of ``a`` with row ``slot`` set to ``v``. A 0-d tensor ``slot``
+    is written through ``index_put``: no readback of the slot, and under
+    ``torch.func.vmap`` each stream writes its own row."""
+    if not torch.is_tensor(slot):
+        out = a.clone()
+        out[slot] = v
+        return out
+    if not torch.is_tensor(v):  # a fill, not a copy from host memory (which syncs)
+        v = torch.full(a.shape[1:], v, dtype=a.dtype, device=a.device)
+    return a.index_put((slot.reshape(1).to(torch.int64),), v.to(a.dtype).expand(a.shape[1:])[None])
 
 
 class MapState(NamedTuple):
@@ -74,12 +89,10 @@ class FrameRing(NamedTuple):
             is_kf=torch.zeros(n_frames, dtype=torch.bool, device=device),
         )
 
-    def push(self, slot: int, pose, kpts, mp_idx, is_kf=False) -> "FrameRing":
-        """Write one slot (functional: returns a new ring)."""
-        def put(a, v):
-            a = a.clone()
-            a[slot] = v
-            return a
+    def push(self, slot, pose, kpts, mp_idx, is_kf=False) -> "FrameRing":
+        """Write one slot, an int or a 0-d tensor (functional: returns a new
+        ring)."""
+        put = lambda a, v: put_row(a, slot, v)
         return FrameRing(poses=put(self.poses, pose), kpts=put(self.kpts, kpts),
                          mp_idx=put(self.mp_idx, mp_idx),
                          occupied=put(self.occupied, True),
@@ -126,12 +139,31 @@ class StepOutput(NamedTuple):
     n_candidates: torch.Tensor
 
 
+def _map_fields(fn, *sts: VOState) -> VOState:
+    """``fn`` over the tensors of one or more states, field by field (the
+    nested records too); ``fn`` gets the field name and the tensors."""
+    def go(name, vs):
+        if hasattr(vs[0], "_fields"):
+            return type(vs[0])(*(go(name, sub) for sub in zip(*vs)))
+        return fn(name, *vs)
+    return VOState(*(go(name, vs) for name, vs in zip(VOState._fields, zip(*sts))))
+
+
 def state_to(st: VOState, device) -> VOState:
     """A copy of the state with every tensor on ``device`` but ``rng``, which
     stays on the CPU."""
-    def move(v):
-        return type(v)(*(t.to(device) for t in v)) if hasattr(v, "_fields") else v.to(device)
-    return VOState(**{k: v if k == "rng" else move(v) for k, v in st._asdict().items()})
+    return _map_fields(lambda name, t: t if name == "rng" else t.to(device), st)
+
+
+def stack_states(sts: list[VOState]) -> VOState:
+    """B states -> one state with a leading [B] on every field (``rng``
+    becomes a [B] int64 tensor on the CPU): the batched step's input."""
+    return _map_fields(lambda name, *ts: torch.stack(ts), *sts)
+
+
+def unstack_state(st: VOState, b: int) -> VOState:
+    """Stream ``b`` of a stacked state."""
+    return _map_fields(lambda name, t: t[b], st)
 
 
 def empty_features(k: int, device="cuda") -> FrameFeatures:
@@ -175,9 +207,7 @@ def init_state(cfg: VOConfig, seed: int = 0, device="cuda") -> VOState:
 def push_keyframe(st: VOState, pose: torch.Tensor) -> VOState:
     """Append a pose to the keyframe log (ring over max_keyframes)."""
     slot = st.kf_count.to(torch.int64) % st.kf_poses.shape[0]
-    kf = st.kf_poses.clone()
-    kf[slot] = pose
-    return st._replace(kf_poses=kf, kf_count=st.kf_count + 1)
+    return st._replace(kf_poses=put_row(st.kf_poses, slot, pose), kf_count=st.kf_count + 1)
 
 
 def insert_map_points(
@@ -198,6 +228,8 @@ def insert_map_points(
         gray = torch.zeros(pts.shape[0], dtype=torch.float32, device=pts.device)
 
     def put(a, v):
+        if not torch.is_tensor(v):  # a fill, not a copy from host memory
+            v = torch.full((), v, dtype=a.dtype, device=a.device)
         out = torch.cat([a, a[:1]])  # scratch row M absorbs dropped rows
         out[slot] = v
         return out[:M]

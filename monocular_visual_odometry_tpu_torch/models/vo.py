@@ -10,21 +10,31 @@ values read back from the device; each branch computes what the selected
 side of the JAX select computes. A tracking frame runs tracking, then
 (``cfg.ba.enabled`` and tracking held) ``models/ba.py::ba_update_state``,
 then the keyframe update, which sees the corrected pose.
+
+The multi-stream mode (:func:`step_tracking_batched`,
+:func:`run_sequences_batched`) is instead JAX's form: B streams that all
+track advance by one frame in one ``torch.func.vmap`` of a per-stream body
+in which BA and the keyframe update run unconditionally and are applied by
+per-stream selects (:func:`_tree_select`). Its random draws are made on the
+host from each stream's key before the body, and one readback after it
+picks each stream's next key.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from monocular_visual_odometry_tpu_torch.models import ba
 from monocular_visual_odometry_tpu_torch.models import state as S
 from monocular_visual_odometry_tpu_torch.ops import lie, matching, pnp, twoview
 from monocular_visual_odometry_tpu_torch.ops.camera import Camera, cam2pixel, in_frame
 from monocular_visual_odometry_tpu_torch.ops.features import FrameFeatures, features_from_config
-from monocular_visual_odometry_tpu_torch.ops.ransac import split_key
+from monocular_visual_odometry_tpu_torch.ops.ransac import split_key, uniforms
 from monocular_visual_odometry_tpu_torch.utils.config import VOConfig
 
 _DEG = math.pi / 180.0
@@ -52,8 +62,8 @@ def compact_mask(mask: torch.Tensor, capacity: int) -> torch.Tensor:
     pos = torch.cumsum(mask.to(torch.int64), dim=0) - 1
     tgt = torch.where(mask & (pos < capacity), pos, torch.full_like(pos, capacity))
     out = torch.full((capacity + 1,), -1, dtype=torch.int64, device=mask.device)
-    out[tgt] = torch.arange(m, device=mask.device)  # duplicates only at the scratch slot
-    return out[:capacity]
+    # duplicates only at the scratch slot
+    return out.index_put((tgt,), torch.arange(m, device=mask.device))[:capacity]
 
 
 def scatter_links(base: torch.Tensor, train_idx: torch.Tensor,
@@ -71,6 +81,16 @@ def scatter_links(base: torch.Tensor, train_idx: torch.Tensor,
     return out.to(base.dtype)
 
 
+def _tree_select(pred: torch.Tensor, a, b):
+    """``torch.where(pred, a, b)`` over two records of the same structure
+    (a None field stays None)."""
+    if a is None:
+        return None
+    if hasattr(a, "_fields"):
+        return type(a)(*(_tree_select(pred, x, y) for x, y in zip(a, b)))
+    return torch.where(pred, a, b)
+
+
 def _eye4(device) -> torch.Tensor:
     return torch.eye(4, dtype=torch.float32, device=device)
 
@@ -80,6 +100,10 @@ def _i32(v, device) -> torch.Tensor:
 
 
 def _next_key(st: S.VOState):
+    """(the state's next key, this stage's key). In the batched step's body
+    ``st.rng`` is None: the host split the keys and made the draws."""
+    if st.rng is None:
+        return None, None
     rng, k = split_key(int(st.rng))
     return torch.tensor(rng, dtype=torch.int64), k
 
@@ -222,7 +246,9 @@ def _step_init_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor
 
 
 def _step_track_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
-                     *, height: int, width: int):
+                     *, height: int, width: int, u: Optional[torch.Tensor] = None):
+    """Tracking; ``u`` are the PnP draw's uniforms when the caller made
+    them (the batched step)."""
     dev = img.device
     feats = features_from_config(img, cfg.orb)
     rng, k_pnp = _next_key(st)
@@ -271,7 +297,7 @@ def _step_track_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tenso
         cand_pts, uv, m.valid, cam, k_pnp,
         threshold_px=cfg.ransac.pnp_reproj_threshold_px,
         n_hypotheses=cfg.ransac.pnp_n_hypotheses,
-        min_inliers=cfg.ransac.pnp_min_inliers,
+        min_inliers=cfg.ransac.pnp_min_inliers, u=u,
     )
     T_w_c_new = lie.inv_T(res.T_c_w)
 
@@ -281,7 +307,7 @@ def _step_track_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tenso
     pose = torch.where(ok, T_w_c_new, st.T_w_c)
 
     inl_ok = res.inliers & ok
-    matched_add = torch.zeros(M, dtype=torch.int32, device=dev).index_add_(
+    matched_add = torch.zeros(M, dtype=torch.int32, device=dev).index_add(
         0, comp_safe, (inl_ok & comp_ok).to(torch.int32))
     new_map = st.map._replace(visible=visible, matched=st.map.matched + matched_add)
     k = cfg.orb.max_keypoints
@@ -303,7 +329,8 @@ def _step_track_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tenso
         T_w_c=pose, stage=new.stage, n_keypoints=feats.n_valid,
         n_matches=m.n_valid, n_inliers=res.n_inliers.to(torch.int32),
         is_keyframe=need_kf, tracking_ok=ok,
-        used_homography=torch.tensor(False, device=dev), n_map_points=new_map.n_valid,
+        used_homography=torch.zeros((), dtype=torch.bool, device=dev),
+        n_map_points=new_map.n_valid,
         kpts=feats.kpts, kpt_valid=feats.valid, kpt_inlier=kpt_inlier,
         ba_rejected_total=st.ba_rejected,
         n_candidates=torch.sum(candidates.to(torch.int32)),
@@ -318,10 +345,13 @@ def _step_track_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tenso
 
 def _keyframe_update_impl(cfg: VOConfig, cam: Camera, st: S.VOState,
                           feats: FrameFeatures, curr_mp: torch.Tensor,
-                          *, height: int, width: int) -> S.VOState:
+                          *, height: int, width: int,
+                          u: Optional[torch.Tensor] = None) -> S.VOState:
     """Match against the reference keyframe, epipolar-filter, triangulate
     with the tracked poses, angle-filter, insert with link reuse, cull the
-    map and make the current frame the new reference."""
+    map and make the current frame the new reference. ``u`` are the
+    E-RANSAC filter's uniforms when the caller made them (the batched
+    step)."""
     rng, k_epi = _next_key(st)
     ref = st.ref_feats
 
@@ -333,7 +363,7 @@ def _keyframe_update_impl(cfg: VOConfig, cam: Camera, st: S.VOState,
     if cfg.ransac.keyframe_use_ransac_filter:
         inl = twoview.find_inlier_matches_by_epipolar(
             uv1, uv2, m.valid, cam, k_epi, threshold_px=cfg.ransac.threshold_px,
-            n_hypotheses=cfg.ransac.n_hypotheses // 2)
+            n_hypotheses=cfg.ransac.n_hypotheses // 2, u=u)
     else:
         inl = twoview.epipolar_filter_known_pose(
             uv1, uv2, m.valid, cam, st.ref_pose, st.T_w_c,
@@ -373,12 +403,10 @@ def _keyframe_update_impl(cfg: VOConfig, cam: Camera, st: S.VOState,
                               torch.full_like(st.erase_ratio, cfg.map.default_erase_ratio))
 
     slot = (st.frame_idx - 1) % cfg.map.frame_buffer
-    mp_idx = st.ring.mp_idx.clone()
-    mp_idx[slot] = curr_mp
     new = st._replace(
         ref_feats=feats, ref_pose=st.T_w_c, ref_mp_idx=curr_mp,
         ref_frame_idx=st.frame_idx - 1, last_keyframe_pose=st.T_w_c,
-        map=new_map, ring=st.ring._replace(mp_idx=mp_idx),
+        map=new_map, ring=st.ring._replace(mp_idx=S.put_row(st.ring.mp_idx, slot, curr_mp)),
         erase_ratio=erase_ratio, rng=rng,
     )
     return S.push_keyframe(new, st.T_w_c)
@@ -407,6 +435,133 @@ def step(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
                                     height=height, width=width)
     return new, out._replace(T_w_c=new.T_w_c, n_map_points=new.map.n_valid,
                              ba_rejected_total=new.ba_rejected)
+
+
+def _stack_outputs(outs: list[S.StepOutput]) -> S.StepOutput:
+    return S.StepOutput(*(torch.stack(f) for f in zip(*outs)))
+
+
+def _frames_on(frames, device) -> torch.Tensor:
+    """A frame stack on ``device`` in one copy (its dtype kept; each step
+    takes its frame as float32 there)."""
+    return torch.as_tensor(np.asarray(frames) if not torch.is_tensor(frames) else frames).to(device)
+
+
+def run_sequence(cfg: VOConfig, cam: Camera, st: S.VOState, frames, *,
+                 height: int, width: int):
+    """:func:`step` over a [N,H,W] frame stack. Returns (final state,
+    StepOutput with a leading [N] on every field, on the state's device)."""
+    frames = _frames_on(frames, st.T_w_c.device)
+    outs = []
+    for img in frames:
+        st, out = step(cfg, cam, st, img.to(torch.float32), height=height, width=width)
+        outs.append(out)
+    return st, _stack_outputs(outs)
+
+
+# ---------------------------------------------------------------------------
+# multi-stream tracking: B streams, one vmapped step
+# ---------------------------------------------------------------------------
+
+
+class BatchedDraws(NamedTuple):
+    """The uniforms a batched step's RANSACs draw from, stream by stream,
+    each from that stream's key as :func:`step` would draw them."""
+
+    pnp: torch.Tensor            # [B, pnp_n_hypotheses, N] (N: the candidate pool)
+    epi: Optional[torch.Tensor]  # [B, n_hypotheses // 2, K]; None unless the
+                                 # keyframe update's E-RANSAC filter is on
+
+
+def _split_keys(rng: torch.Tensor) -> list[tuple[int, int, int, int]]:
+    """Per stream, as :func:`step` splits them: (key after tracking, PnP key,
+    key after a keyframe update, its E-RANSAC key)."""
+    out = []
+    for r in rng.tolist():
+        r1, k_pnp = split_key(r)
+        r2, k_epi = split_key(r1)
+        out.append((r1, k_pnp, r2, k_epi))
+    return out
+
+
+def draw_batched(cfg: VOConfig, rng: torch.Tensor, device) -> BatchedDraws:
+    """Each stream's draws from its key ``rng`` [B] (CPU int64), on ``device``."""
+    keys = _split_keys(rng)
+    M, C = cfg.map.max_map_points, cfg.map.track_candidates
+    n_pnp = C if C and C < M else M
+    pnp_u = torch.stack([uniforms(k[1], (cfg.ransac.pnp_n_hypotheses, n_pnp), device)
+                         for k in keys])
+    epi_u = None
+    if cfg.ransac.keyframe_use_ransac_filter:
+        epi_u = torch.stack([uniforms(k[3], (cfg.ransac.n_hypotheses // 2,
+                                             cfg.orb.max_keypoints), device) for k in keys])
+    return BatchedDraws(pnp_u, epi_u)
+
+
+def _vmap_dims(record):
+    """vmap's dims for a record: 0 for every tensor, None for a None field."""
+    return tree_map(lambda v: None if v is None else 0, record)
+
+
+def tracking_batched_body(cfg: VOConfig, cam: Camera, sts: S.VOState, imgs: torch.Tensor,
+                          draws: BatchedDraws, *, height: int, width: int):
+    """The vmapped body of :func:`step_tracking_batched`: per stream,
+    tracking, then BA (``cfg.ba.enabled``) and the keyframe update computed
+    unconditionally and applied where ``tracking_ok`` / ``is_keyframe``
+    hold. No host branch and no readback. ``rng`` is left out (None in the
+    returned state). Returns (states, StepOutputs), [B] leading."""
+
+    def one(st, img, d):
+        new, out, feats, curr_mp = _step_track_impl(cfg, cam, st, img, height=height,
+                                                    width=width, u=d.pnp)
+        if cfg.ba.enabled:
+            new = _tree_select(out.tracking_ok, ba.ba_update_state(cfg, cam, new), new)
+        kf_new = _keyframe_update_impl(cfg, cam, new, feats, curr_mp,
+                                       height=height, width=width, u=d.epi)
+        new = _tree_select(out.is_keyframe, kf_new, new)
+        return new, out._replace(T_w_c=new.T_w_c, n_map_points=new.map.n_valid,
+                                 ba_rejected_total=new.ba_rejected)
+
+    st_in = sts._replace(rng=None)
+    st_dims = _vmap_dims(st_in)
+    return torch.func.vmap(one, in_dims=(st_dims, 0, _vmap_dims(draws)),
+                           out_dims=(st_dims, 0))(st_in, imgs, draws)
+
+
+def step_tracking_batched(cfg: VOConfig, cam: Camera, sts: S.VOState, imgs, *,
+                          height: int, width: int, draws: Optional[BatchedDraws] = None):
+    """B tracking streams (:func:`models.state.stack_states`) advance by one
+    frame each, ``imgs`` [B,H,W]: every kernel of the step is issued once
+    for all B streams. Each stream's draws come from its key as in
+    :func:`step` (``draws`` overrides them); one readback after the body
+    (the step's only wait on the device) picks each stream's next key, the
+    keyframe update's split kept only where ``is_keyframe``. Every stream
+    must be in ``STAGE_TRACKING`` (checked in that readback): raises
+    ValueError otherwise. Returns (states, StepOutputs), [B] leading."""
+    imgs = _frames_on(imgs, sts.T_w_c.device).to(torch.float32)
+    if draws is None:
+        draws = draw_batched(cfg, sts.rng, imgs.device)
+    new, out = tracking_batched_body(cfg, cam, sts, imgs, draws, height=height, width=width)
+    stage, is_kf = torch.stack([sts.stage, out.is_keyframe.to(sts.stage.dtype)]).cpu()
+    if not bool((stage == S.STAGE_TRACKING).all()):
+        raise ValueError("step_tracking_batched: every stream must be tracking "
+                         f"(stage {S.STAGE_TRACKING}); stages {stage.tolist()}")
+    rng = [k[2] if kf else k[0] for k, kf in zip(_split_keys(sts.rng), is_kf.tolist())]
+    return new._replace(rng=torch.tensor(rng, dtype=torch.int64)), out
+
+
+def run_sequences_batched(cfg: VOConfig, cam: Camera, sts: S.VOState, frames, *,
+                          height: int, width: int):
+    """:func:`step_tracking_batched` over [B,N,H,W] frame stacks (moved to the
+    device once). Returns (final states, StepOutput with [N,B] leading on
+    every field: scan-major, as the JAX function)."""
+    frames = _frames_on(frames, sts.T_w_c.device)
+    outs = []
+    for i in range(frames.shape[1]):
+        sts, out = step_tracking_batched(cfg, cam, sts, frames[:, i], height=height,
+                                         width=width)
+        outs.append(out)
+    return sts, _stack_outputs(outs)
 
 
 class VOEngine:

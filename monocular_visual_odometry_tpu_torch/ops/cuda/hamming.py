@@ -7,11 +7,18 @@ TPU kernel's +/-1 unpack existed only to reach the matrix unit). On a CUDA
 tensor it launches ``csrc/hamming_nn_top2.cu`` or raises; on a CPU tensor
 it runs :func:`hamming_nn_top2_reference`. There is no fallback from one to
 the other.
+
+The call goes through the operator ``mvo::hamming_nn_top2``, whose vmap
+rule makes ``torch.func.vmap`` (one level) of it a call of
+:func:`hamming_nn_top2_batched`: on CUDA one launch for all streams, on the
+CPU the plain version per stream. That is how the batched tracking step
+(``models/vo.py::step_tracking_batched``) matches B streams at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -23,10 +30,10 @@ _lib = None
 
 
 def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
-    """[K,32] uint8 packed -> [K,256] int8 in {-1,+1} (bit=1 -> +1)."""
+    """[...,32] uint8 packed -> [...,256] int8 in {-1,+1} (bit=1 -> +1)."""
     shifts = torch.arange(8, dtype=torch.int32, device=desc.device)
-    bits = (desc.to(torch.int32)[:, :, None] >> shifts[None, None, :]) & 1
-    return (bits.reshape(desc.shape[0], 256) * 2 - 1).to(torch.int8)
+    bits = (desc.to(torch.int32)[..., None] >> shifts) & 1
+    return (bits.reshape(desc.shape[:-1] + (256,)) * 2 - 1).to(torch.int8)
 
 
 def _radius2(r: float) -> float:
@@ -90,10 +97,90 @@ def _library() -> ctypes.CDLL:
         fn = lib.hamming_nn_top2_launch
         P = ctypes.c_void_p
         fn.argtypes = [P, P, P, P, ctypes.c_int, P, P, P, ctypes.c_int,
-                       ctypes.c_float, P, P, P, P]
+                       ctypes.c_float, P, P, P, ctypes.c_int, P]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _pad_train(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` [B,K2,...] with ``n`` zero (invalid) train points appended."""
+    return torch.cat([t, torch.zeros((t.shape[0], n) + t.shape[2:], dtype=t.dtype,
+                                     device=t.device)], dim=1)
+
+
+def _launch(desc1, uv1, uv1_alt, valid1, desc2, uv2, valid2, r):
+    """One kernel launch over B streams: desc* [B,K,32], uv* [B,K,2],
+    valid* [B,K] on one CUDA device. Returns (best, second, idx) [B,K1]."""
+    dev = desc1.device
+    if dev.type != "cuda":
+        raise ValueError(f"hamming_nn_top2: unsupported device {dev}")
+    b, k1, k2 = desc1.shape[0], desc1.shape[1], desc2.shape[1]
+    if b > 1 and k2 % 16:
+        # stream s's train set starts s*K2 points in; its bulk copies need a
+        # 16-byte aligned start, so K2 is padded to a multiple of 16 with
+        # invalid points (which no query can match)
+        pad = -k2 % 16
+        desc2, uv2, valid2 = (_pad_train(t, pad) for t in (desc2, uv2, valid2))
+        k2 += pad
+    alt = uv1 if uv1_alt is None else uv1_alt
+    for name, t, dt, shape in (("desc1", desc1, torch.uint8, (b, k1, 32)),
+                               ("uv1", uv1, torch.float32, (b, k1, 2)),
+                               ("uv1_alt", alt, torch.float32, (b, k1, 2)),
+                               ("valid1", valid1, torch.bool, (b, k1)),
+                               ("desc2", desc2, torch.uint8, (b, k2, 32)),
+                               ("uv2", uv2, torch.float32, (b, k2, 2)),
+                               ("valid2", valid2, torch.bool, (b, k2))):
+        _check(name, t, dt, shape, dev)
+    ptrs = [t.data_ptr() for t in (desc1, uv1, alt, valid1, desc2, uv2, valid2)]
+    best = torch.empty((b, k1), dtype=torch.float32, device=dev)
+    second = torch.empty((b, k1), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, k1), dtype=torch.int32, device=dev)
+    err = _library().hamming_nn_top2_launch(
+        *ptrs[:4], k1, *ptrs[4:], k2, _radius2(r), best.data_ptr(), second.data_ptr(),
+        idx.data_ptr(), b, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hamming_nn_top2 launch failed: CUDA error {err}")
+    hamming_nn_top2.launches += 1
+    return best, second, idx
+
+
+def hamming_nn_top2_batched(desc1, uv1, valid1, desc2, uv2, valid2, r, uv1_alt=None):
+    """B independent calls of :func:`hamming_nn_top2` in one: every input
+    carries a leading [B] (stream b matches its queries against its own
+    train set); returns (best, second, idx) [B,K1]. On CUDA tensors one
+    kernel launch, on CPU tensors the plain version per stream."""
+    if desc1.device.type == "cpu":
+        alts = [None] * desc1.shape[0] if uv1_alt is None else uv1_alt
+        outs = [hamming_nn_top2_reference(*args, r, uv1_alt=alt) for *args, alt in
+                zip(desc1, uv1, valid1, desc2, uv2, valid2, alts)]
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return _launch(desc1, uv1, uv1_alt, valid1, desc2, uv2, valid2, r)
+
+
+@torch.library.custom_op("mvo::hamming_nn_top2", mutates_args=())
+def _op(desc1: torch.Tensor, uv1: torch.Tensor, uv1_alt: Optional[torch.Tensor],
+        valid1: torch.Tensor, desc2: torch.Tensor, uv2: torch.Tensor, valid2: torch.Tensor,
+        r: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if desc1.device.type == "cpu":
+        return hamming_nn_top2_reference(desc1, uv1, valid1, desc2, uv2, valid2, r, uv1_alt)
+    one = lambda t: None if t is None else t[None]
+    best, second, idx = _launch(*map(one, (desc1, uv1, uv1_alt, valid1, desc2, uv2, valid2)), r)
+    return best[0], second[0], idx[0]
+
+
+@_op.register_vmap
+def _op_vmap(info, in_dims, desc1, uv1, uv1_alt, valid1, desc2, uv2, valid2, r):
+    """vmap of the operator: the batch dim to the front (an unbatched input
+    is expanded), then one :func:`hamming_nn_top2_batched` call."""
+    def front(t, d):
+        if t is None:
+            return None
+        t = t.expand((info.batch_size,) + t.shape) if d is None else t.movedim(d, 0)
+        return t.contiguous()
+    d1, p1, alt, v1, d2, p2, v2 = map(front, (desc1, uv1, uv1_alt, valid1, desc2, uv2, valid2),
+                                      in_dims[:7])
+    return hamming_nn_top2_batched(d1, p1, v1, d2, p2, v2, r, uv1_alt=alt), (0, 0, 0)
 
 
 def hamming_nn_top2(desc1, uv1, valid1, desc2, uv2, valid2, r, uv1_alt=None):
@@ -102,34 +189,9 @@ def hamming_nn_top2(desc1, uv1, valid1, desc2, uv2, valid2, r, uv1_alt=None):
     desc*: [K,32] uint8 packed; uv*: [K,2] float32; valid*: [K] bool; ``r``
     a Python float; ``uv1_alt`` an optional second query position (the gate
     accepts the union of both). Returns (best [K1] f32, second [K1] f32,
-    idx [K1] int32) with 1e9 / index 0 where nothing passes the gate."""
-    if desc1.device.type == "cpu":
-        return hamming_nn_top2_reference(desc1, uv1, valid1, desc2, uv2, valid2,
-                                         r, uv1_alt)
-    if desc1.device.type != "cuda":
-        raise ValueError(f"hamming_nn_top2: unsupported device {desc1.device}")
-    dev = desc1.device
-    k1, k2 = desc1.shape[0], desc2.shape[0]
-    alt = uv1 if uv1_alt is None else uv1_alt
-    for name, t, dt, shape in (("desc1", desc1, torch.uint8, (k1, 32)),
-                               ("uv1", uv1, torch.float32, (k1, 2)),
-                               ("uv1_alt", alt, torch.float32, (k1, 2)),
-                               ("valid1", valid1, torch.bool, (k1,)),
-                               ("desc2", desc2, torch.uint8, (k2, 32)),
-                               ("uv2", uv2, torch.float32, (k2, 2)),
-                               ("valid2", valid2, torch.bool, (k2,))):
-        _check(name, t, dt, shape, dev)
-    ptrs = [t.data_ptr() for t in (desc1, uv1, alt, valid1, desc2, uv2, valid2)]
-    best = torch.empty(k1, dtype=torch.float32, device=dev)
-    second = torch.empty(k1, dtype=torch.float32, device=dev)
-    idx = torch.empty(k1, dtype=torch.int32, device=dev)
-    err = _library().hamming_nn_top2_launch(
-        *ptrs[:4], k1, *ptrs[4:], k2, _radius2(r), best.data_ptr(), second.data_ptr(),
-        idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"hamming_nn_top2 launch failed: CUDA error {err}")
-    hamming_nn_top2.launches += 1
-    return best, second, idx
+    idx [K1] int32) with 1e9 / index 0 where nothing passes the gate. Under
+    ``torch.func.vmap`` the whole batch is one launch."""
+    return _op(desc1, uv1, uv1_alt, valid1, desc2, uv2, valid2, float(r))
 
 
-hamming_nn_top2.launches = 0  # kernel launches since the last reset
+hamming_nn_top2.launches = 0  # kernel launches since the last reset, batched or not

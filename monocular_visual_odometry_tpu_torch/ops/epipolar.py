@@ -113,9 +113,10 @@ def _consensus_refit(x1, x2, valid, hyps, msac, refit, min_support, cap, ok=None
 
 
 def estimate_essential(
-    x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor, key: int,
+    x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor, key: int | None,
     *, threshold: float, n_hypotheses: int = 512, minimal: str = "8pt",
     idx: Optional[torch.Tensor] = None, G: Optional[torch.Tensor] = None,
+    u: Optional[torch.Tensor] = None,
 ) -> RansacModel:
     """RANSAC essential matrix from normalized-plane correspondences with
     MSAC scoring and a consensus refit. ``threshold`` in normalized units.
@@ -124,7 +125,8 @@ def estimate_essential(
     ``max(n_hypotheses // 4, 8)`` five-point samples of up to 8 candidates
     each; ``key`` splits into the sample draw and the basis remix, as
     ``jax.random.split`` does in the reference, and ``idx`` / ``G``
-    override them."""
+    override them. ``u`` [n_hypotheses, N] are the 8-point draw's uniforms
+    (see ``ransac.sample_minimal_sets``)."""
     if minimal not in ("8pt", "5pt"):
         raise ValueError(f"estimate_essential: unknown minimal solver {minimal!r}")
     th = np.float32(threshold)
@@ -138,7 +140,7 @@ def estimate_essential(
         Es, ok = Es.reshape(-1, 3, 3), ok.reshape(-1)
     else:
         if idx is None:
-            idx = sample_minimal_sets(key, valid, n_hypotheses, 8)
+            idx = sample_minimal_sets(key, valid, n_hypotheses, 8, u)
         Es = _eight_point(x1[idx], x2[idx])
 
     def msac(E):

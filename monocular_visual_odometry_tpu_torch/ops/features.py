@@ -175,8 +175,8 @@ def fast_corner_mask(img: torch.Tensor, threshold) -> torch.Tensor:
     lo = img - threshold
     for i, (dx, dy) in enumerate(_FAST_OFFSETS):
         p = pad[3 + int(dy):3 + int(dy) + H, 3 + int(dx):3 + int(dx) + W]
-        bright |= (p > hi).to(torch.int64) << i
-        dark |= (p < lo).to(torch.int64) << i
+        bright = bright | ((p > hi).to(torch.int64) << i)
+        dark = dark | ((p < lo).to(torch.int64) << i)
 
     def has_run9(m16: torch.Tensor) -> torch.Tensor:
         m = m16 | (m16 << 16)
@@ -319,13 +319,13 @@ def cell_topk(score: torch.Tensor, cell: int, k: int):
     H, W = score.shape
     ncy, ncx = H // cell, W // cell
     s = score.reshape(ncy, cell, ncx, cell).permute(0, 2, 1, 3)
-    s = s.reshape(ncy * ncx, cell * cell).clone()
+    s = s.reshape(ncy * ncx, cell * cell)
     vals, idxs = [], []
     for _ in range(k):
         i = torch.argmax(s, dim=1, keepdim=True)
         vals.append(torch.gather(s, 1, i)[:, 0])
         idxs.append(i[:, 0])
-        s.scatter_(1, i, float("-inf"))
+        s = s.scatter(1, i, float("-inf"))
     v = torch.stack(vals, dim=1).reshape(-1)
     i = torch.stack(idxs, dim=1).reshape(-1)
     cid = torch.arange(ncy * ncx, device=score.device).repeat_interleave(k)

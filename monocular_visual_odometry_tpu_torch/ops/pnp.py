@@ -138,7 +138,7 @@ def _gn_refine(T0_c_w: torch.Tensor, pts_w: torch.Tensor, uv: torch.Tensor,
         return cost, H, g
 
     T = T0_c_w
-    lam = torch.tensor(init_lambda, dtype=T.dtype, device=T.device)
+    lam = torch.full((), init_lambda, dtype=T.dtype, device=T.device)
     for _ in range(iterations):
         cost, H, g = cost_and_system(T)
         delta = -torch.linalg.solve_ex(H + lam * eye6, g).result
@@ -152,16 +152,17 @@ def _gn_refine(T0_c_w: torch.Tensor, pts_w: torch.Tensor, uv: torch.Tensor,
 
 def solve_pnp_ransac(
     pts_w: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
-    cam: Camera, key: int,
+    cam: Camera, key: int | None,
     *, threshold_px: float = 2.0, n_hypotheses: int = 256,
     min_inliers: int = 5, refine_iterations: int = 10,
-    idx: Optional[torch.Tensor] = None,
+    idx: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None,
 ) -> PnPResult:
     """RANSAC PnP over fixed-capacity masked 3D-2D correspondences; ``idx``
-    [B,3] overrides the sampled minimal sets."""
+    [B,3] overrides the sampled minimal sets, ``u`` [n_hypotheses, N] the
+    uniforms they are drawn from (see ``ransac.sample_minimal_sets``)."""
     uv_n = torch.stack([(uv[:, 0] - cam.cx) / cam.fx, (uv[:, 1] - cam.cy) / cam.fy], dim=-1)
     if idx is None:
-        idx = sample_minimal_sets(key, valid, n_hypotheses, 3)
+        idx = sample_minimal_sets(key, valid, n_hypotheses, 3, u)
     R, t, okh = p3p_grunert(pts_w[idx], uv_n[idx])
     Ts = lie.rt_to_T(R.reshape(-1, 3, 3), t.reshape(-1, 3))
     okh = okh.reshape(-1)

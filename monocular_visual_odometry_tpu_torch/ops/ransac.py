@@ -6,7 +6,9 @@ explicit integer keys: :func:`split_key` derives independent child keys
 :func:`sample_minimal_sets` draws from a ``torch.Generator`` seeded with a
 key. The draws differ from JAX's; every entry point above this module
 therefore also accepts explicit sample indices (``idx=``) so a test can
-hand both packages the same minimal sets.
+hand both packages the same minimal sets, and the uniforms a draw is made
+from (``u=``), which the batched step (``models/vo.py``) draws per stream
+outside its vmapped body.
 """
 
 from __future__ import annotations
@@ -30,15 +32,24 @@ def split_key(key: int, n: int = 2) -> list[int]:
     return [_splitmix64(key * 1_000_003 + i + 1) >> 1 for i in range(n)]
 
 
-def sample_minimal_sets(key: int, valid: torch.Tensor, n_hypotheses: int,
-                        sample_size: int) -> torch.Tensor:
+def uniforms(key: int, shape: tuple[int, ...], device) -> torch.Tensor:
+    """The uniforms [0, 1) that ``key`` gives on ``device`` (a
+    ``torch.Generator`` seeded with it)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(key)
+    return torch.rand(shape, generator=gen, device=device)
+
+
+def sample_minimal_sets(key: int | None, valid: torch.Tensor, n_hypotheses: int,
+                        sample_size: int, u: torch.Tensor | None = None) -> torch.Tensor:
     """``n_hypotheses`` index sets of ``sample_size`` distinct valid entries
     (random-key top-k, the Gumbel-top-k of the reference). With fewer valid
     entries than ``sample_size`` invalid indices appear; their degenerate
-    solves score out downstream. Returns [B, sample_size] int64."""
-    gen = torch.Generator(device=valid.device)
-    gen.manual_seed(key)
-    u = torch.rand((n_hypotheses, valid.shape[0]), generator=gen, device=valid.device)
+    solves score out downstream. ``u`` [n_hypotheses, N] are the uniforms
+    drawn from ``key`` (``uniforms(key, ...)`` on ``valid``'s device), when
+    the caller drew them. Returns [B, sample_size] int64."""
+    if u is None:
+        u = uniforms(key, (n_hypotheses, valid.shape[0]), valid.device)
     u = torch.where(valid[None, :], u, torch.full_like(u, -1.0))
     return torch.topk(u, sample_size, dim=-1).indices
 
@@ -61,7 +72,8 @@ def nullspace(A: torch.Tensor, iters: int = 3) -> torch.Tensor:
     M = AtA + (1e-6 / d) * torch.clamp(tr, min=1e-30) * eye
     L = torch.linalg.cholesky_ex(M).L  # no error check: NaN propagates as in JAX
     v0 = torch.ones(AtA.shape[:-2] + (d,), dtype=A.dtype, device=A.device)
-    alt = torch.tensor([1.0, -1.0], dtype=A.dtype, device=A.device).repeat((d + 1) // 2)[:d]
+    # [1, -1, 1, ...] from a kernel, not from host data (a copy would sync)
+    alt = 1.0 - 2.0 * (torch.arange(d, device=A.device) % 2).to(A.dtype)
     v1 = alt.expand(AtA.shape[:-2] + (d,))
     V = torch.stack([v0, v1], dim=-1)
     for _ in range(iters):
@@ -84,8 +96,7 @@ def nullspace(A: torch.Tensor, iters: int = 3) -> torch.Tensor:
     use1 = torch.abs(lam_min - a) > torch.abs(lam_min - c)
     w = torch.where(use1[..., None], w1, w2)
     degenerate = torch.linalg.norm(w, dim=-1) < 1e-12
-    e0 = torch.tensor([1.0, 0.0], dtype=A.dtype, device=A.device)
-    e1 = torch.tensor([0.0, 1.0], dtype=A.dtype, device=A.device)
+    e0, e1 = torch.eye(2, dtype=A.dtype, device=A.device)
     w_fallback = torch.where((a <= c)[..., None], e0, e1)
     w = torch.where(degenerate[..., None], w_fallback, w)
     w = w / (torch.linalg.norm(w, dim=-1, keepdim=True) + 1e-30)

@@ -141,16 +141,17 @@ def estimate_relative_pose(
 
 def find_inlier_matches_by_epipolar(
     uv1: torch.Tensor, uv2: torch.Tensor, valid: torch.Tensor,
-    cam: Camera, key: int,
+    cam: Camera, key: int | None,
     *, threshold_px: float = 1.0, n_hypotheses: int = 256,
-    idx: Optional[torch.Tensor] = None,
+    idx: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """E-RANSAC used purely as an outlier filter. Returns [N] bool."""
+    """E-RANSAC used purely as an outlier filter (8-point draws: ``idx``
+    or their uniforms ``u`` may be given). Returns [N] bool."""
     x1 = pixel2cam_norm_plane(uv1, cam)
     x2 = pixel2cam_norm_plane(uv2, cam)
     th_n = float(np.float32(threshold_px) / _focal(cam))
     return epi.estimate_essential(x1, x2, valid, key, threshold=th_n,
-                                  n_hypotheses=n_hypotheses, idx=idx).inliers
+                                  n_hypotheses=n_hypotheses, idx=idx, u=u).inliers
 
 
 def epipolar_filter_known_pose(

@@ -1,5 +1,6 @@
-"""The CUDA matcher kernel against its plain PyTorch version, and BA and the
-five-point solver on the card against the same calls on the CPU.
+"""The CUDA matcher kernel against its plain PyTorch version (one call and
+one batched launch over B streams), BA, the five-point solver and the
+batched tracking step on the card against the same calls on the CPU.
 
 Marked ``cuda``: here, without a card, every test skips. On a machine with
 one (which has no JAX, so the JAX-importing ``conftest.py`` is left out):
@@ -17,6 +18,12 @@ against the JAX XLA route instead. The kernel stages the train set in
 stage boundaries, the ragged ones end a stage off the 16-byte grid of its
 bulk copies and leave the last block of queries part-empty.
 
+A batched launch matches each stream's queries against its own train set:
+stream b must equal the plain version of stream b (``BATCHED_CASES``:
+the batched tracking step's shapes at B=8, and B=3 with ragged K1 and K2,
+one stream with no valid query, one with a single valid train point, and
+K2=1).
+
 BA's scatter-adds are atomics on the card, so float32 sums differ from the
 CPU's in the last bits: poses agree to 1e-4, and with ``deterministic=True``
 (float64) to float32 rounding (rtol 1e-6). The five-point solver is compared
@@ -30,8 +37,10 @@ import pytest
 import torch
 from scipy.spatial.transform import Rotation
 
+from monocular_visual_odometry_tpu_torch.data import synthetic as TSYN
 from monocular_visual_odometry_tpu_torch.models import ba as TB
 from monocular_visual_odometry_tpu_torch.models import state as TS
+from monocular_visual_odometry_tpu_torch.models import vo as TV
 from monocular_visual_odometry_tpu_torch.ops import fivepoint as TF
 from monocular_visual_odometry_tpu_torch.ops import lie as TL
 from monocular_visual_odometry_tpu_torch.ops import matching as TM
@@ -142,6 +151,106 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
         TH.hamming_nn_top2(args[0], args[1].double(), *args[2:])
     with pytest.raises(ValueError):
         TH.hamming_nn_top2(args[0], args[1].cpu(), *args[2:])
+
+
+def _batched(b, k1, k2, seed, alt=False, r=50.0):
+    """B streams of ``_inputs`` stacked; stream 1 of a ragged case has no
+    valid query and stream 2 a single valid train point."""
+    xs = [_inputs(k1, k2, seed + i) for i in range(b)]
+    if b == 3:
+        xs[1]["v1"][:] = False
+        xs[2]["v2"][:] = False
+        xs[2]["v2"][k2 // 2] = True
+    out = {k: np.stack([x[k] for x in xs]) for k in ("d1", "d2", "uv1", "uv2", "v1", "v2")}
+    out["alt"] = (out["uv1"] + np.random.default_rng(seed).normal(0, 30, out["uv1"].shape)
+                  ).astype(np.float32) if alt else None
+    return out, r
+
+
+BATCHED_CASES = {
+    "track_b8": lambda: _batched(8, 1536, 1024, 30, alt=True, r=50.0),
+    "keyframe_b8": lambda: _batched(8, 1024, 1024, 40, r=100.0),
+    "ragged_b3": lambda: _batched(3, 1003, 777, 50, alt=True, r=80.0),
+    "k2_1_b3": lambda: _batched(3, 1003, 1, 60, r=1e6),
+    "stages_b2": lambda: _batched(2, 129, 2049, 70, r=1e6),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BATCHED_CASES))
+def test_batched_launch_equals_plain_version_per_stream(card, case):
+    x, r = BATCHED_CASES[case]()
+    x = _on_card(x)
+    args = (x["d1"], x["uv1"], x["v1"], x["d2"], x["uv2"], x["v2"], r)
+    before = TH.hamming_nn_top2.launches
+    got = TH.hamming_nn_top2_batched(*args, uv1_alt=x["alt"])
+    # vmap of the one-stream call goes through the same single launch
+    call = lambda d1, p1, v1, d2, p2, v2, pa: TH.hamming_nn_top2(
+        d1, p1, v1, d2, p2, v2, r, uv1_alt=None if x["alt"] is None else pa)
+    got_vmap = torch.func.vmap(call)(*args[:6], x["uv1"] if x["alt"] is None else x["alt"])
+    torch.cuda.synchronize()
+    assert TH.hamming_nn_top2.launches == before + 2
+    for b in range(x["d1"].shape[0]):
+        want = TH.hamming_nn_top2_reference(*(a[b] for a in args[:6]), r,
+                                            uv1_alt=None if x["alt"] is None else x["alt"][b])
+        for g, gv, w, what in zip(got, got_vmap, want, ("best", "second", "idx")):
+            assert torch.equal(g[b], w) and torch.equal(gv[b], w), (b, what)
+
+
+def _warm_streams(cfg, n_streams, warm, steps, device):
+    """Engines on ``device`` warmed up over ``warm`` frames of sequences
+    seed 0.. n_streams-1; returns (stacked states, frames [B,steps,H,W])."""
+    sts, frames = [], []
+    for seed in range(n_streams):
+        seq, _ = TSYN.render_sequence_arrays(warm + steps, seed=seed, translation_step=0.05)
+        eng = TV.VOEngine(cfg, 480, 640, device=device)
+        for f in seq[:warm]:
+            eng.add_frame(f)
+        assert int(eng.state.stage) == TS.STAGE_TRACKING
+        sts.append(eng.state)
+        frames.append(seq[warm:])
+    return TS.stack_states(sts), np.stack(frames)
+
+
+def _small_cfg():
+    cfg = VOConfig()
+    return cfg.replace(
+        orb=dataclasses.replace(cfg.orb, max_keypoints=512, num_keypoints=4000),
+        ransac=dataclasses.replace(cfg.ransac, n_hypotheses=256, pnp_n_hypotheses=128),
+        map=dataclasses.replace(cfg.map, max_map_points=2048))
+
+
+@pytest.mark.cuda
+def test_batched_step_on_card_matches_cpu_and_never_waits(card):
+    """One B=2 step on the card, its body under set_sync_debug_mode("error"),
+    against the same step on a CPU copy fed the card's draws: the counts
+    that follow from the matches within 5% (the card's features round
+    differently, so a near-tied keypoint can move a match), the other
+    integer outputs equal, poses within 1e-3 (pose_distance)."""
+    cfg = _small_cfg()
+    sts, frames = _warm_streams(cfg, 2, 12, 1, "cuda")
+    imgs = torch.from_numpy(frames[:, 0]).float().cuda()
+    draws = TV.draw_batched(cfg, sts.rng, "cuda")
+    before = TH.hamming_nn_top2.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        TV.tracking_batched_body(cfg, CAM, sts, imgs, draws, height=480, width=640)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert TH.hamming_nn_top2.launches == before + 2   # tracking and keyframe update
+    _, got = TV.step_tracking_batched(cfg, CAM, sts, imgs, height=480, width=640, draws=draws)
+    _, want = TV.step_tracking_batched(
+        cfg, CAM, TS.state_to(sts, "cpu"), imgs.cpu(), height=480, width=640,
+        draws=TV.BatchedDraws(*(None if d is None else d.cpu() for d in draws)))
+    for f in ("stage", "n_keypoints", "n_candidates", "is_keyframe", "tracking_ok",
+              "ba_rejected_total"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    for f in ("n_matches", "n_inliers", "n_map_points"):
+        g, w = getattr(got, f).cpu(), getattr(want, f)
+        assert ((g - w).abs() <= 0.05 * w).all(), f
+    for b in range(2):
+        assert float(TL.pose_distance(got.T_w_c[b].cpu(), want.T_w_c[b])) < 1e-3
 
 
 # ---------------------------------------------------------------------------
