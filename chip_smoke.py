@@ -55,6 +55,25 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    under ``set_sync_debug_mode("error")`` and holds one B=2 step against a CPU
    copy fed the same draws (matches, inliers and map points within 5%, the
    other counts equal, poses within 1e-3);
+   4f. the command-line entry point: writes phase 4's 150 frames and their
+   ground truth with the port's PNG writer and trajectory I/O to
+   ``build/cli/synthetic_seq/`` and times the port's PNG decode over them
+   (one call after another, and the prefetching loader); runs
+   ``cli.main(["--synthetic", ...])`` in-process (``--checkpoint-every 50
+   --viewer --save-frames``) and checks exit 0, the loader line, 150 rows
+   in ``cam_traj.txt``, Sim(3) ATE < 3% of the path, <= 5 ``TRACK-FAIL``
+   banners, matcher launches = ``match_features`` calls and BA calls =
+   tracking frames with ``tracking_ok`` (both read from the banners), the
+   viewer, the 150 annotated frames and the three checkpoints; prints the
+   largest pose distance to phase 4's run of the same frames (and, if it is
+   above 1e-4, runs phase 4's engine again to show whether two runs on the
+   card part: then the budgets are the check); resumes a fresh engine from
+   ``state_00099.npz`` over frames 100-149 against the CLI's rows, twice
+   (the frames from memory, then through the loader) and prints the host ms
+   per frame of each beside phase 4's and the CLI's own step time; runs
+   ``python3 -m monocular_visual_odometry_tpu_torch.cli --config`` as a
+   subprocess on a reference-layout YAML over 30 frames (exit 0, 30 rows,
+   an ATE in ``report.json``); prints the CLI's fps beside phase 4's;
 5. prints one JSON line describing the kernels, then, as the last line, the
    device JSON.
 
@@ -67,12 +86,16 @@ The sequences are rendered by a pool of processes at the start of phase 4.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import importlib.util
+import io
 import json
 import multiprocessing
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -99,6 +122,9 @@ GRAPH_CALLS = 20         # calls captured in one CUDA graph for device timing
 BATCH_SEQS, BATCH_FRAMES, BATCH_WARM = 8, 60, 15  # phase 4e: streams, frames, warm-up
 BATCH_SIZES = (1, 2, 4, 8)
 BATCH_PROFILE_STEPS = 5
+CLI_CHECKPOINT_EVERY, CLI_RESUME_FROM = 50, 100  # phase 4f: resume from state_00099.npz
+CLI_CONFIG_FRAMES = 30   # phase 4f: frames of the --config run
+POSE_TOL = 1e-4          # phase 4f: CLI and resumed poses against the in-process runs
 KERNELS_PER_STEP_RATIO = 1.5  # B=8 device kernels per batched step, at most x B=1's
 RENDER_CHUNK = 30        # frames per rendering job
 FP32_PEAK = 67e12        # H100 SXM, non-tensor fp32 FLOP/s
@@ -279,6 +305,216 @@ def _batched_inputs(b, k1, k2, seed, *, alt=False, ragged=False):
     return tuple(None if ts[0] is None else torch.stack(ts) for ts in zip(*streams))
 
 
+_BANNER = re.compile(r"^frame +(\d+) \[(\w+) *\] .* (KF|  ) (ok|TRACK-FAIL)$", re.M)
+
+
+def _first_parting(a, b, tol):
+    """(largest position distance, first frame whose distance exceeds ``tol``
+    or None) between two [N,4,4] trajectories."""
+    d = np.linalg.norm(a[:, :3, 3] - b[:, :3, 3], axis=-1)
+    above = np.flatnonzero(d > tol)
+    return float(d.max()), (int(above[0]) if above.size else None)
+
+
+def _phase_4f(frames, gt, main, run_path, cfg) -> int:
+    """Phase 4f, the command-line entry point (see the module docstring).
+    Returns the matcher launches of the CLI's --synthetic run."""
+    from monocular_visual_odometry_tpu_torch import cli
+    from monocular_visual_odometry_tpu_torch.models import ba as BA
+    from monocular_visual_odometry_tpu_torch.models import state as S
+    from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
+    from monocular_visual_odometry_tpu_torch.ops.cuda import hamming as HM
+    from monocular_visual_odometry_tpu_torch.runtime import FrameLoader, decode_png, write_png
+    from monocular_visual_odometry_tpu_torch.utils import io as vio
+    from monocular_visual_odometry_tpu_torch.utils.checkpoint import load_state
+
+    t_phase = time.perf_counter()
+    mods = ("yaml", "PIL", "jax", "matplotlib")
+    absent = [m for m in mods if importlib.util.find_spec(m) is None]
+    print(f"4f: of {', '.join(mods)}, not installed on this machine: {absent}", flush=True)
+    cli_dir = Path(ROOT) / "build" / "cli"
+    cfg_dir = Path(ROOT) / "build" / "cli_cfg"
+    for d in (cli_dir, cfg_dir):  # a stale run's files never count for this one
+        shutil.rmtree(d, ignore_errors=True)
+    seq_dir = cli_dir / "synthetic_seq"
+    paths = [str(seq_dir / f"rgb_{i:05d}.png") for i in range(N_FRAMES)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
+        list(ex.map(write_png, paths, frames))
+    vio.write_trajectory(seq_dir / "cam_traj_truth.txt", gt)
+    write_s = time.perf_counter() - t0
+
+    # the decoder: one call after another, then the prefetching loader
+    t0 = time.perf_counter()
+    for path, f in zip(paths, frames):
+        if not np.array_equal(decode_png(path, H, W), f):
+            raise AssertionError(f"4f: {path} does not decode to the frame written")
+    decode_ms = 1e3 * (time.perf_counter() - t0) / N_FRAMES
+    t0 = time.perf_counter()
+    with FrameLoader(paths, H, W) as loader:
+        n_loaded = sum(1 for _ in loader)
+    loader_ms = 1e3 * (time.perf_counter() - t0) / N_FRAMES
+    if n_loaded != N_FRAMES:
+        raise AssertionError(f"4f: the loader gave {n_loaded} frames of {N_FRAMES}")
+    print(f"4f: wrote {N_FRAMES} PNG frames in {write_s:.2f} s; decode {decode_ms:.3f} ms per "
+          f"frame one call after another, {loader_ms:.3f} ms per frame through the prefetching "
+          f"loader (depth 4, 2 threads); every frame decodes to the frame written", flush=True)
+
+    # the --synthetic run, in-process, so the counts can be read
+    argv = ["--synthetic", "--frames", str(N_FRAMES), "--output", str(cli_dir),
+            "--checkpoint-every", str(CLI_CHECKPOINT_EVERY), "--viewer", "--save-frames"]
+    torch.cuda.synchronize()
+    HM.hamming_nn_top2.launches = 0
+    BA.ba_update_state.calls = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches, ba_calls = HM.hamming_nn_top2.launches, BA.ba_update_state.calls
+    log = buf.getvalue()
+    (Path(ROOT) / "build" / "cli_stdout.txt").write_text(log)
+    print(f"4f: cli.main({argv}) -> {rc} in {cli_s:.2f} s; its [cli] lines:", flush=True)
+    for line in log.splitlines():
+        if line.startswith("[cli]") and "report:" not in line:
+            print(f"  {line}", flush=True)
+    if rc != 0:
+        raise AssertionError(f"4f: the CLI exited {rc}")
+    if "[cli] frame loader: native C++" not in log:
+        raise AssertionError("4f: the CLI did not report the native frame loader")
+    banners = _BANNER.findall(log)
+    names = {"BLANK": S.STAGE_BLANK, "INIT": S.STAGE_INITIALIZING, "TRACK": S.STAGE_TRACKING}
+    prev, n_match, n_ba = S.STAGE_BLANK, 0, 0
+    for _, stage, kf, ok in banners:
+        n_match += {S.STAGE_BLANK: 0, S.STAGE_INITIALIZING: 1}.get(prev, 1 + (kf == "KF"))
+        n_ba += int(cfg.ba.enabled and prev == S.STAGE_TRACKING and ok == "ok")
+        prev = names[stage]
+    n_fail = sum(ok != "ok" for *_, ok in banners)
+    est = vio.read_trajectory(cli_dir / "cam_traj.txt")
+    report = json.loads((cli_dir / "report.json").read_text())
+    share = report["ate_sim3"] / report["gt_traj_length"]
+    print(f"4f: {len(banners)} frame banners, {n_fail} TRACK-FAIL, final stage {prev}; "
+          f"cam_traj.txt {len(est)} rows; report: {report['fps']} fps, Sim3 ATE "
+          f"{report['ate_sim3']:.4f} on a {report['gt_traj_length']:.3f} path "
+          f"({100 * share:.2f}%), drift_final {report['drift_final']:.4f}, "
+          f"{report['map_points']} map points, {report['keyframes']} keyframes; matcher "
+          f"launches {launches} (match_features calls from the banners {n_match}), "
+          f"ba_update_state calls {ba_calls} (tracking frames with tracking_ok {n_ba})",
+          flush=True)
+    if len(banners) != N_FRAMES or est.shape != (N_FRAMES, 4, 4):
+        raise AssertionError(f"4f: {len(banners)} banners and {len(est)} rows, expected "
+                             f"{N_FRAMES}")
+    if prev != S.STAGE_TRACKING or n_fail > 5:
+        raise AssertionError(f"4f: final stage {prev}, {n_fail} TRACK-FAIL banners (budget 5)")
+    if not share < 0.03:
+        raise AssertionError(f"4f: the CLI's ATE is {100 * share:.2f}% of the path (budget 3%)")
+    if launches <= 0 or launches != n_match:
+        raise AssertionError(f"4f: {launches} matcher launches, expected {n_match}")
+    if ba_calls != n_ba or n_ba == 0:
+        raise AssertionError(f"4f: {ba_calls} ba_update_state calls, expected {n_ba}")
+    written = ["viewer.html"] + [f"frame_{i:05d}.png" for i in range(N_FRAMES)] + \
+        [f"state_{i:05d}.npz" for i in range(CLI_CHECKPOINT_EVERY - 1, N_FRAMES,
+                                              CLI_CHECKPOINT_EVERY)]
+    missing = [n for n in written if not (cli_dir / n).is_file()]
+    if missing:
+        raise AssertionError(f"4f: the CLI did not write {missing[:5]}")
+
+    # the same frames in-process (phase 4's main path) and, resumed, from frame
+    # 100: the frames from memory (uint8), then through the loader (the PNGs)
+    d_cli, part_cli = _first_parting(est, main["est"], POSE_TOL)
+    step_ms = {k: float(v) for k, v in re.findall(r"^(vo_step|draw) +\d+ +[\d.]+ +([\d.]+)$",
+                                                  log, re.M)}
+    resumed, resume_ms = {}, {}
+    for source in ("memory", "loader"):
+        eng = VOEngine(cfg, H, W, seed=0, device="cuda")
+        eng.state = load_state(str(cli_dir / f"state_{CLI_RESUME_FROM - 1:05d}.npz"), eng.state)
+        if int(eng.state.frame_idx) != CLI_RESUME_FROM:
+            raise AssertionError(f"4f: the checkpoint is at frame {int(eng.state.frame_idx)}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            feed = frames[CLI_RESUME_FROM:] if source == "memory" else \
+                stack.enter_context(FrameLoader(paths[CLI_RESUME_FROM:], H, W))
+            resumed[source] = np.stack([eng.add_frame(f).T_w_c.numpy() for f in feed])
+        torch.cuda.synchronize()
+        resume_ms[source] = 1e3 * (time.perf_counter() - t0) / (N_FRAMES - CLI_RESUME_FROM)
+    dists = {k: _first_parting(v, est[CLI_RESUME_FROM:], POSE_TOL) for k, v in resumed.items()}
+    d_res = max(d for d, _ in dists.values())
+    print(f"4f: largest pose distance, CLI rows against phase 4's in-process run of the same "
+          f"frames {d_cli:.3e} (first frame above {POSE_TOL}: {part_cli}); engine resumed from "
+          f"state_{CLI_RESUME_FROM - 1:05d}.npz over frames {CLI_RESUME_FROM}-{N_FRAMES - 1} "
+          f"against the CLI's rows: frames from memory {dists['memory'][0]:.3e}, through the "
+          f"loader {dists['loader'][0]:.3e} (first frame above {POSE_TOL}: "
+          f"{dists['memory'][1]}, {dists['loader'][1]})", flush=True)
+    print(f"4f: host ms per frame: phase 4's run {np.mean(main['frame_ms']):.1f} (frames "
+          f"{CLI_RESUME_FROM}-{N_FRAMES - 1}: {np.mean(main['frame_ms'][CLI_RESUME_FROM:]):.1f}); "
+          f"the CLI's vo_step {step_ms.get('vo_step')} and draw {step_ms.get('draw')} (its "
+          f"StageTimer); resumed over frames {CLI_RESUME_FROM}-{N_FRAMES - 1} from memory "
+          f"{resume_ms['memory']:.1f}, through the loader {resume_ms['loader']:.1f}", flush=True)
+    if d_cli > POSE_TOL or d_res > POSE_TOL:
+        # do two in-process runs of the same engine on the card part?
+        again = run_path("4f phase 4's engine, a second run", cfg, N_FRAMES)
+        d_again, part_again = _first_parting(again["est"], main["est"], POSE_TOL)
+        diff = np.flatnonzero(np.abs(again["est"] - main["est"]).max(axis=(1, 2)) > 0)
+        print(f"4f: two in-process runs of phase 4's engine: largest pose distance "
+              f"{d_again:.3e}, first frame that differs at all "
+              f"{int(diff[0]) if diff.size else None}, first above {POSE_TOL}: {part_again}",
+              flush=True)
+        if part_again is None:
+            raise AssertionError("4f: the CLI's (or the resumed) trajectory parts from the "
+                                 "in-process run, which two in-process runs do not")
+        print("4f: two runs on the card part, so the CLI is held to the budgets above",
+              flush=True)
+
+    # the --config run: a reference-layout YAML, a process of its own
+    d = cfg.dataset
+    (cli_dir / "config.yaml").write_text(f"""%YAML:1.0
+---
+# reference layout: dataset_name selects the section
+dataset_name: "synthetic"
+synthetic:
+  dataset_dir: "{seq_dir}"
+  num_images: {CLI_CONFIG_FRAMES}
+  camera_info.fx: {d.fx}
+  camera_info.fy: {d.fy}
+  camera_info.cx: {d.cx}
+  camera_info.cy: {d.cy}
+  is_draw_true_traj: "true"
+  true_traj_filename: '{seq_dir / "cam_traj_truth.txt"}'
+max_num_imgs_to_proc: 300
+is_enable_ba: "true"
+""")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "monocular_visual_odometry_tpu_torch.cli",
+                           "--config", str(cli_dir / "config.yaml"), "--output", str(cfg_dir)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    (Path(ROOT) / "build" / "cli_cfg_stdout.txt").write_text(proc.stdout + proc.stderr)
+    print(f"4f: python3 -m monocular_visual_odometry_tpu_torch.cli --config {cli_dir}/config.yaml "
+          f"-> {proc.returncode} in {sub_s:.2f} s (process start, imports, card set-up "
+          f"included); its last lines:\n" + "\n".join(
+              "  " + ln for ln in (proc.stdout + proc.stderr).strip().splitlines()[-6:]),
+          flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"4f: the --config run exited {proc.returncode}")
+    rows = vio.read_trajectory(cfg_dir / "cam_traj.txt")
+    cfg_report = json.loads((cfg_dir / "report.json").read_text())
+    if len(rows) != CLI_CONFIG_FRAMES or "ate_sim3" not in cfg_report:
+        raise AssertionError(f"4f: the --config run wrote {len(rows)} rows, report keys "
+                             f"{sorted(cfg_report)}")
+    print(f"4f: --config run: {len(rows)} rows, Sim3 ATE {cfg_report['ate_sim3']:.4f} on a "
+          f"{cfg_report['gt_traj_length']:.3f} path, {cfg_report['fps']} fps over "
+          f"{CLI_CONFIG_FRAMES} frames (first frames included)", flush=True)
+    print(f"4f: in this call, the CLI {report['fps']} fps (report.json: frames / wall, annotated "
+          f"frames, checkpoints and viewer included) against phase 4's in-process "
+          f"{main['fps']:.2f} fps; PNG decode {decode_ms:.3f} ms per frame "
+          f"({loader_ms:.3f} through the loader); phase 4f took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -312,12 +548,15 @@ def main() -> int:
     if have_pr1:
         jobs.append(("hamming_nn_top2_pr1", PR1_DIR / "hamming_nn_top2.cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
+    with ThreadPoolExecutor(max_workers=len(jobs) + 1) as ex:
+        host = ex.submit(build.build_host, "png_gray")  # the CLI's PNG decoder (host C++)
         built = dict(zip((j[0] for j in jobs), ex.map(lambda j: build.build(*j), jobs)))
+        host_path, host_secs, _ = host.result()
     print(f"build: {len(jobs)} kernel librar(ies) from {len(sources)} source(s) in the "
           f"package in {time.perf_counter() - t0:.2f} s", flush=True)
     for name, (path, secs, log) in built.items():
         print(f"  {name}: {path.name} ({secs:.2f} s)\n{log.strip()}", flush=True)
+    print(f"  host PNG decoder: {host_path.name} ({host_secs:.2f} s)", flush=True)
 
     elapsed("phase 3")
     # ---- 3. kernel against plain version ---------------------------------
@@ -525,10 +764,12 @@ def main() -> int:
         HM.hamming_nn_top2.launches = 0
         BA.ba_update_state.calls = 0
         est, n_fail, n_match, n_ba, stage, per_frame = [], 0, 0, 0, S.STAGE_BLANK, []
+        stamps = []  # host clock after each frame (add_frame reads its output back)
         t0 = time.perf_counter()
         for f in frames[:n]:
             before = HM.hamming_nn_top2.launches
             out = eng.add_frame(f)
+            stamps.append(time.perf_counter())
             per_frame.append(HM.hamming_nn_top2.launches - before)
             n_match += {S.STAGE_BLANK: 0, S.STAGE_INITIALIZING: 1}.get(
                 stage, 1 + int(bool(out.is_keyframe)))
@@ -547,6 +788,7 @@ def main() -> int:
         if not np.isfinite(est).all():
             raise AssertionError(f"{name}: non-finite pose in the trajectory")
         r["est"] = est
+        r["frame_ms"] = 1e3 * np.diff([t0] + stamps)
         r["ate"] = metrics.ate_rmse(est, gt[:n])
         r["length"] = metrics.trajectory_length(gt[:n])
         early_ate = metrics.ate_rmse(est[:EARLY_FRAMES], gt[:EARLY_FRAMES])
@@ -858,6 +1100,9 @@ def main() -> int:
     if not max(dists) < 1e-3:
         raise AssertionError(f"4e: card and CPU poses differ by {max(dists)}")
 
+    elapsed("phase 4f")
+    cli_launches = _phase_4f(frames, gt, main, run_path, cfg)
+
     elapsed("phase 5")
     # ---- 5. kernels line and device line ---------------------------------
     track = shape_rows[1]
@@ -867,6 +1112,7 @@ def main() -> int:
         "source": "monocular_visual_odometry_tpu_torch/csrc/hamming_nn_top2.cu",
         "replaces": "monocular_visual_odometry_tpu/ops/pallas/hamming.py:125",
         "launches": main["launches"],
+        "cli_launches": cli_launches,
         "exact": True,
         "max_abs_err": max_err,
         "ms": track["ms"],

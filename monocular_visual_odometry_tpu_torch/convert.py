@@ -37,7 +37,8 @@ def _fields(v: Any) -> Mapping[str, Any]:
     return v._asdict() if hasattr(v, "_asdict") else v
 
 
-def _key_from_words(words: np.ndarray) -> int:
+def key_from_words(words: np.ndarray) -> int:
+    """A JAX ``PRNGKey`` (two uint32 words) folded into the port's integer key."""
     w = np.asarray(words).astype(np.uint64).reshape(-1)
     key = 0
     for x in w:
@@ -68,7 +69,7 @@ def state_from_numpy(d: Mapping[str, Any], device="cuda", batched: bool = False)
     for name in VOState._fields:
         if name == "rng":
             key = np.asarray(d[name])
-            fold = _key_from_words if key.dtype == np.uint32 else int
+            fold = key_from_words if key.dtype == np.uint32 else int
             k = [fold(w) for w in key] if batched else fold(key)
             out[name] = torch.tensor(k, dtype=torch.int64)
         elif name in _NESTED:

@@ -3,16 +3,21 @@
 Copy of the parts of ``monocular_visual_odometry_tpu.data.synthetic`` that
 render the benchmark sequence: the textured room of :func:`default_scene`,
 the smooth trajectory of :func:`make_trajectory` and the ray-traced
-:func:`render_frame`. :func:`render_sequence_arrays` returns in memory the
-frames that the JAX package's ``render_sequence`` saves as lossless PNGs.
+:func:`render_frame`. :func:`render_sequence_arrays` returns the frames in
+memory; :func:`render_sequence` writes them as lossless PNGs in the
+reference's dataset layout, as the JAX package's ``render_sequence`` does.
 The rotations are built in numpy (no scipy).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
+
+from monocular_visual_odometry_tpu_torch.runtime import write_png
+from monocular_visual_odometry_tpu_torch.utils import io as vio
 
 
 def _multiscale_texture(rng: np.random.Generator, size: int = 1024) -> np.ndarray:
@@ -155,3 +160,22 @@ def render_sequence_arrays(n_frames: int = 60, seed: int = 0,
     frames = np.stack([render_frame(poses[i], planes, K, height, width)
                        for i in range(lo, hi)])
     return frames, poses
+
+
+def render_sequence(out_dir: str, n_frames: int = 60, seed: int = 0,
+                    height: int = 480, width: int = 640,
+                    fx: float = 615.0, fy: float = 615.0,
+                    cx: float = 320.0, cy: float = 240.0,
+                    translation_step: float = 0.04) -> np.ndarray:
+    """Render a full benchmark sequence into ``out_dir`` in the reference's
+    dataset layout: ``rgb_%05d.png`` frames + ``cam_traj_truth.txt`` ground
+    truth. Returns the [N,4,4] GT poses."""
+    os.makedirs(out_dir, exist_ok=True)
+    planes = default_scene(seed)
+    poses = make_trajectory(n_frames, seed, translation_step=translation_step)
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    for i in range(n_frames):
+        img = render_frame(poses[i], planes, K, height, width)
+        write_png(os.path.join(out_dir, f"rgb_{i:05d}.png"), img)
+    vio.write_trajectory(os.path.join(out_dir, "cam_traj_truth.txt"), poses)
+    return poses

@@ -27,7 +27,8 @@ K2=1).
 BA's scatter-adds are atomics on the card, so float32 sums differ from the
 CPU's in the last bits: poses agree to 1e-4, and with ``deterministic=True``
 (float64) to float32 rounding (rtol 1e-6). The five-point solver is compared
-in float64, as a solution set (see ``test_torch_fivepoint.py``).
+in float64, as a solution set (see ``test_torch_fivepoint.py``). A state
+checkpoint saved on the card resumes there.
 """
 
 import dataclasses
@@ -411,3 +412,29 @@ def test_five_point_on_card_equals_cpu(card):
                                      (others + E).flatten(1).norm(dim=1))
                 d.append(float(dist.min()) if len(others) else float("inf"))
         assert np.mean(np.asarray(d) < 1e-6) >= 0.9, sorted(d)[-10:]
+
+
+@pytest.mark.cuda
+def test_checkpoint_on_card_resumes(card, tmp_path):
+    """A state saved from the card loads onto the card (every tensor there,
+    the key on the CPU) and the next frame from it is the run's: the same
+    decisions and counts, poses and keypoints to 1e-4 (BA's atomics)."""
+    from monocular_visual_odometry_tpu_torch.utils.checkpoint import load_state, save_state
+
+    cfg = VOConfig()
+    frames, _ = TSYN.render_sequence_arrays(8, seed=0, translation_step=0.05)
+    eng = TV.VOEngine(cfg, 480, 640, device="cuda")
+    for f in frames[:-1]:
+        eng.add_frame(f)
+    save_state(str(tmp_path / "s.npz"), eng.state)
+    want = eng.add_frame(frames[-1])
+    back = TV.VOEngine(cfg, 480, 640, seed=9, device="cuda")
+    back.state = load_state(str(tmp_path / "s.npz"), back.state)
+    assert back.state.rng.device.type == "cpu"
+    assert back.state.map.pts.device.type == "cuda" and back.state.ring.kpts.is_cuda
+    got = back.add_frame(frames[-1])
+    for name, g, w in zip(got._fields, got, want):
+        if g.is_floating_point():
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0, msg=name)
+        else:
+            assert torch.equal(g, w), name
