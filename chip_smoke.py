@@ -29,7 +29,12 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    kernel of the path launched once per ``match_features`` call and
    ``ba_update_state`` once per tracking frame whose tracking held (counts
    reset just before the run, read just after);
-   4a. the same with BA off, for the fps beside BA on in this call;
+   4a. the same with BA off, for the fps beside BA on in this call; then
+   ``add_frame``'s readback over 20 tracking frames: after ``step`` returns,
+   the ``StepOutput`` comes back with exactly one synchronizing call
+   (counted with ``torch.cuda.set_sync_debug_mode("warn")``), equal field by
+   field to a ``.cpu()`` per field (which waits once per field), and the host
+   ms of both, in turns;
    4b. profiles a window of steady tracking frames (BA on) with
    ``torch.profiler`` and prints the device-busy share and the kernels that
    take the most time;
@@ -74,13 +79,32 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    ``python3 -m monocular_visual_odometry_tpu_torch.cli --config`` as a
    subprocess on a reference-layout YAML over 30 frames (exit 0, 30 rows,
    an ATE in ``report.json``); prints the CLI's fps beside phase 4's;
+   4g. the paths the scene generators and camera tools open, each through
+   ``VOEngine`` on the card at the depth its budgets were set at, with the
+   launch and BA counts of phase 4: planar init (``planar_scene``, 40 frames)
+   under the reference (ORB-SLAM score) and the tournament selection rule at
+   512 keypoints, gated as ``tests/test_planar_sequence.py`` (tracking,
+   0 < init frame <= 15, H at init under the reference rule, ATE < 8% of the
+   path, ``tracking_ok`` on >= N - init - 2 frames), and at 1024 keypoints
+   (recorded); the robustness matrix of ``tests/test_robustness.py`` (150
+   frames, default config: seven perturbations, each within its ATE and
+   end-drift budgets, and the severe case, ATE < 30%); calibrate (10
+   chessboard views, rms < 0.1 px) -> distort 40 ideal renders with the true
+   lens -> undistort with the calibrated one -> track with the calibrated
+   intrinsics (ATE < 6%), and the undistort loop of
+   ``tests/test_undistort_loop.py`` (clean, undistorted, raw distorted);
+   bench's reference-parity cfg6 (1500 keypoints, reference rule, keyframe
+   E-RANSAC filter, last-W-frames BA window) over phase 4's 150 frames (ATE
+   < 3%, <= 5 failures), its fps beside phase 4's;
 5. prints one JSON line describing the kernels, then, as the last line, the
    device JSON.
 
-Phase 3 also holds batched launches (B streams in one launch: B=8 at the
-tracking and keyframe shapes, B=3 ragged with a stream without valid queries
-and one with a single valid train point, B=3 with K2=1) against the plain
-version per stream and times one batched launch against B single launches.
+Phase 3's shapes include cfg6's (1500x1500 r=100, 1536x1500 r=50) and the
+planar width's (512x512 r=100, 1536x512 r=50). It also holds batched
+launches (B streams in one launch: B=8 at the tracking and keyframe shapes,
+B=3 ragged with a stream without valid queries and one with a single valid
+train point, B=3 with K2=1) against the plain version per stream and times
+one batched launch against B single launches.
 The sequences are rendered by a pool of processes at the start of phase 4.
 """
 
@@ -99,6 +123,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
@@ -127,6 +152,22 @@ CLI_CONFIG_FRAMES = 30   # phase 4f: frames of the --config run
 POSE_TOL = 1e-4          # phase 4f: CLI and resumed poses against the in-process runs
 KERNELS_PER_STEP_RATIO = 1.5  # B=8 device kernels per batched step, at most x B=1's
 RENDER_CHUNK = 30        # frames per rendering job
+READBACK_FROM, READBACK_FRAMES = 40, 20  # phase 4: add_frame's readback, tracking frames
+# phase 4g, the paths the scene generators and camera tools open; each at the
+# depth its budgets were set at in the JAX package's tests
+PLANAR_FRAMES = 40       # tests/test_planar_sequence.py
+ROBUST_FRAMES = 150      # tests/test_robustness.py
+CHAIN_FRAMES = 40        # tests/test_tools_chain.py, tests/test_undistort_loop.py
+# (kind, severity, ATE budget, end-drift budget; % of the path): the MATRIX of
+# tests/test_robustness.py, then its severe case (low contrast 0.1, then noise 6)
+ROBUST_MATRIX = [("noise", 10.0, 4.5, 12.0), ("blur", 7.0, 4.0, 10.0),
+                 ("exposure", 1.0, 4.0, 12.0), ("low_contrast", 0.5, 4.5, 13.0),
+                 ("low_contrast", 0.25, 4.5, 13.0), ("jpeg", 2.0, 4.5, 12.0),
+                 ("vignette", 2.0, 4.5, 12.0)]
+SEVERE_ATE = 30.0        # % of the path: bounded, not accurate
+K_TRUE = np.array([[615.0, 0, 320], [0, 615, 240], [0, 0, 1.0]])
+CHAIN_DIST = np.array([-0.28, 0.09])     # the chain's true lens (test_tools_chain.py)
+UNDISTORT_DIST = np.array([-0.30, 0.09])  # the undistort loop's lens (test_undistort_loop.py)
 FP32_PEAK = 67e12        # H100 SXM, non-tensor fp32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 # PR 1's wrapper (hamming.py) and kernel (hamming_nn_top2.cu), for the A/B
@@ -257,20 +298,26 @@ def _tie_inputs(seed, dev="cuda"):
 
 
 def _render(job):
-    """Frames lo..hi-1 of a synthetic sequence (runs in a pool process)."""
-    seed, n, step, lo, hi = job
+    """Frames lo..hi-1 of a synthetic sequence (runs in a pool process):
+    ``kind`` "bench" is the benchmark's room and trajectory, "planar" the
+    single-wall scene and its wall-facing trajectory."""
+    kind, seed, n, step, lo, hi = job
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
     from monocular_visual_odometry_tpu_torch.data import synthetic as syn
+    if kind == "planar":
+        scene, poses = syn.planar_scene(), syn.make_planar_trajectory(n)
+        return np.stack([syn.render_frame(poses[i], scene, K_TRUE, H, W)
+                         for i in range(lo, hi)]), poses
     return syn.render_sequence_arrays(n, seed=seed, height=H, width=W, translation_step=step,
                                       span=(lo, hi))
 
 
 def _render_all(seqs):
-    """[(frames, gt)] for (seed, n_frames, translation_step) in ``seqs``,
+    """[(frames, gt)] for (kind, seed, n_frames, translation_step) in ``seqs``,
     rendered in chunks by a pool of processes (closed before returning)."""
-    jobs = [(seed, n, step, lo, min(lo + RENDER_CHUNK, n))
-            for seed, n, step in seqs for lo in range(0, n, RENDER_CHUNK)]
+    jobs = [(kind, seed, n, step, lo, min(lo + RENDER_CHUNK, n))
+            for kind, seed, n, step in seqs for lo in range(0, n, RENDER_CHUNK)]
     # one BLAS thread per worker: the workers are as many as the cores
     # (with a pool of threads each, rendering took 4x as long)
     threads = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
@@ -287,7 +334,7 @@ def _render_all(seqs):
             else:
                 os.environ[k] = v
     out = []
-    for seed, n, step in seqs:
+    for _, _, n, _ in seqs:
         chunk = [next(parts) for _ in range(0, n, RENDER_CHUNK)]
         out.append((np.concatenate([f for f, _ in chunk]), chunk[0][1]))
     return out
@@ -303,6 +350,304 @@ def _batched_inputs(b, k1, k2, seed, *, alt=False, ragged=False):
         one[k2 // 2] = True
         streams[2][5] = one
     return tuple(None if ts[0] is None else torch.stack(ts) for ts in zip(*streams))
+
+
+def _drive(cfg, frames, gt):
+    """Drive a fresh ``VOEngine`` on the card over ``frames`` (the user's entry
+    point, one ``add_frame`` per frame); the kernel and BA counts are set to 0
+    just before and read just after. Returns the run's record: trajectory,
+    host ms per frame, fps, per-frame diagnostics, the counts and what they
+    should be (``match_features`` calls and tracking frames whose tracking
+    held, from the frames' stages), Sim(3) ATE and end drift against ``gt``
+    (inf where a pose is not finite)."""
+    from monocular_visual_odometry_tpu_torch.models import ba as BA
+    from monocular_visual_odometry_tpu_torch.models import state as S
+    from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
+    from monocular_visual_odometry_tpu_torch.ops.cuda import hamming as HM
+    from monocular_visual_odometry_tpu_torch.utils import metrics
+
+    eng = VOEngine(cfg, H, W, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    HM.hamming_nn_top2.launches = 0
+    BA.ba_update_state.calls = 0
+    outs, n_fail, n_match, n_ba, stage, per_frame = [], 0, 0, 0, S.STAGE_BLANK, []
+    stamps = []  # host clock after each frame (add_frame reads its output back)
+    t0 = time.perf_counter()
+    for f in frames:
+        before = HM.hamming_nn_top2.launches
+        out = eng.add_frame(f)
+        stamps.append(time.perf_counter())
+        per_frame.append(HM.hamming_nn_top2.launches - before)
+        n_match += {S.STAGE_BLANK: 0, S.STAGE_INITIALIZING: 1}.get(
+            stage, 1 + int(bool(out.is_keyframe)))
+        n_ba += int(cfg.ba.enabled and stage == S.STAGE_TRACKING and bool(out.tracking_ok))
+        stage = int(out.stage)
+        if stage == S.STAGE_TRACKING and not bool(out.tracking_ok):
+            n_fail += 1
+        outs.append(out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = len(frames)
+    est = np.stack([o.T_w_c.numpy() for o in outs])
+    stages = np.array([int(o.stage) for o in outs])
+    finite = bool(np.isfinite(est).all())
+    tracking = stages == S.STAGE_TRACKING
+    return dict(
+        frames=n, wall_s=wall, fps=n / wall, stage=stage, n_fail=n_fail,
+        launches=HM.hamming_nn_top2.launches, match_calls=n_match,
+        ba_calls=BA.ba_update_state.calls, ba_expected=n_ba,
+        ba_rejected=int(outs[-1].ba_rejected_total), per_frame_max=max(per_frame), est=est,
+        frame_ms=1e3 * np.diff([t0] + stamps), finite=finite,
+        ate=metrics.ate_rmse(est, gt) if finite else float("inf"),
+        drift=float(metrics.drift_curve(est, gt)[-1]) if finite else float("inf"),
+        length=metrics.trajectory_length(gt),
+        init_frame=int(np.argmax(tracking)) if tracking.any() else None,
+        used_homography=np.array([bool(o.used_homography) for o in outs]),
+        tracking_ok=int(sum(bool(o.tracking_ok) for o in outs)),
+        keyframes=int(sum(bool(o.is_keyframe) for o in outs)),
+        median_keypoints=float(np.median([int(o.n_keypoints) for o in outs])))
+
+
+def _check_counts(name, cfg, r):
+    """The kernel launched once per ``match_features`` call, BA ran once per
+    tracking frame whose tracking held."""
+    if r["launches"] <= 0 or r["launches"] != r["match_calls"]:
+        raise AssertionError(f"{name}: hamming_nn_top2 launched {r['launches']} times, "
+                             f"expected {r['match_calls']} (one per match_features call)")
+    if r["ba_calls"] != r["ba_expected"] or (cfg.ba.enabled and r["ba_expected"] == 0):
+        raise AssertionError(f"{name}: ba_update_state ran {r['ba_calls']} times, expected "
+                             f"{r['ba_expected']} (one per tracking frame whose tracking held)")
+
+
+def _sync_calls(fn):
+    """(fn(), the synchronizing CUDA calls ``fn`` made), as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (the first use of the mode also warns that it is a prototype feature)
+    return out, sum(str(w.message).startswith("called a synchronizing CUDA operation")
+                    for w in caught)
+
+
+def _chessboard_views(K, dist):
+    """The ten chessboard views of ``tests/test_tools_chain.py`` seen through
+    a camera (K, radial k1, k2): [M,2] board points and [M,2] pixels per
+    view, the rotations by the port's Euler helper (equal to scipy's)."""
+    from monocular_visual_odometry_tpu_torch.data import synthetic as syn
+    from monocular_visual_odometry_tpu_torch.data import tools
+
+    rng = np.random.default_rng(0)
+    obj = tools.chessboard_object_points((8, 6), square=0.03)
+    objs, imgs = [], []
+    for _ in range(10):
+        Rm = syn._from_euler("xyz", rng.uniform(-0.5, 0.5, 3))
+        t = np.array([rng.uniform(-0.05, 0.05), rng.uniform(-0.05, 0.05),
+                      rng.uniform(0.4, 0.8)])
+        pc = np.concatenate([obj, np.zeros((len(obj), 1))], axis=1) @ Rm.T + t
+        xy = pc[:, :2] / pc[:, 2:3]
+        r2 = (xy ** 2).sum(1, keepdims=True)
+        uv = (xy * (1 + dist[0] * r2 + dist[1] * r2 ** 2)) @ K[:2, :2].T + K[:2, 2]
+        objs.append(obj)
+        imgs.append(uv)
+    return objs, imgs
+
+
+def _per_frame(fn, frames):
+    """``fn`` over frame chunks on threads (numpy releases the GIL), stacked;
+    only for maps that treat each frame on its own."""
+    chunks = np.array_split(np.asarray(frames), min(len(frames), os.cpu_count() or 1))
+    with ThreadPoolExecutor(max_workers=len(chunks)) as ex:
+        return np.concatenate(list(ex.map(fn, chunks)))
+
+
+def _phase_4_readback(cfg, frames):
+    """``add_frame``'s readback (phase 4, see the module docstring): after
+    ``step`` returns, the StepOutput comes back with one wait; the old
+    readback (one ``.cpu()`` per field) beside it, in turns, on the same
+    outputs."""
+    from monocular_visual_odometry_tpu_torch.models import state as S
+    from monocular_visual_odometry_tpu_torch.models import vo as V
+    from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
+
+    readback = {"one wait": V.output_to_host,
+                "per field": lambda o: S.StepOutput(*(t.cpu() for t in o))}
+    rb_eng = VOEngine(cfg, H, W, seed=0, device="cuda")
+    for f in frames[:READBACK_FROM]:
+        rb_eng.add_frame(f)
+    rb_ms = {k: ([], []) for k in readback}  # ms first after the step, then second
+    waits = {k: set() for k in readback}
+    for i, f in enumerate(frames[READBACK_FROM:READBACK_FROM + READBACK_FRAMES]):
+        img = torch.as_tensor(np.asarray(f), dtype=torch.float32).to("cuda")  # as add_frame
+        rb_eng.state, out = V.step(cfg, rb_eng.cam, rb_eng.state, img, height=H, width=W)
+        got = {}
+        for pos, k in enumerate(list(readback)[::1 if i % 2 == 0 else -1]):
+            t0 = time.perf_counter()
+            got[k] = readback[k](out)
+            rb_ms[k][pos].append(1e3 * (time.perf_counter() - t0))
+        for k, fn in readback.items():
+            waits[k].add(_sync_calls(lambda fn=fn: fn(out))[1])
+        for name, a, b in zip(S.StepOutput._fields, got["one wait"], got["per field"]):
+            if a.device.type != "cpu" or a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"add_frame's readback: {name} differs from the per-field "
+                                     f"readback")
+    n_cuda = sum(t.is_cuda for t in out)
+    med = lambda v: float(np.median(v))
+    print(f"readback: {READBACK_FRAMES} tracking frames ({READBACK_FROM}...); synchronizing "
+          f"calls after step returns (set_sync_debug_mode('warn')): one wait "
+          f"{sorted(waits['one wait'])}, per field {sorted(waits['per field'])} ({n_cuda} "
+          f"fields on the card); every field "
+          f"equal, dtypes too; host ms, median, first after the step (waits for its queued "
+          f"work) one wait {med(rb_ms['one wait'][0]):.3f}, per field "
+          f"{med(rb_ms['per field'][0]):.3f}; second (device idle) one wait "
+          f"{med(rb_ms['one wait'][1]):.3f}, per field {med(rb_ms['per field'][1]):.3f} "
+          f"(in turns, frame by frame)", flush=True)
+    if waits["one wait"] != {1} or waits["per field"] != {n_cuda}:
+        raise AssertionError(f"add_frame's readback waited {waits['one wait']} times per frame "
+                             f"(expected 1; per field {waits['per field']})")
+
+
+def _phase_4g(frames, gt, robust_seq, chain_seq, planar_seq, main, cfg):
+    """Phase 4g, the paths the scene generators and camera tools open (see the
+    module docstring). Every run goes through ``VOEngine`` on the card; a gate
+    that fails raises. Returns {cell: run record}."""
+    from monocular_visual_odometry_tpu_torch.data import synthetic as syn
+    from monocular_visual_odometry_tpu_torch.data import tools
+    from monocular_visual_odometry_tpu_torch.models import state as S
+
+    t_phase = time.perf_counter()
+    cells = {}
+
+    def run(tag, c, fr, poses, note=""):
+        r = _drive(c, fr, poses)
+        share = lambda v: f"{100 * v / r['length']:.2f}%"
+        print(f"4g {tag}: {r['frames']} frames in {r['wall_s']:.2f} s = {r['fps']:.2f} fps; final "
+              f"stage {r['stage']}, finite {r['finite']}, init frame {r['init_frame']}, tracking "
+              f"failures {r['n_fail']}, tracking_ok on {r['tracking_ok']} frames, keyframes "
+              f"{r['keyframes']}, median keypoints {r['median_keypoints']:.0f}; Sim3 ATE "
+              f"{r['ate']:.4f} ({share(r['ate'])} of a {r['length']:.3f} path), end drift "
+              f"{r['drift']:.4f} ({share(r['drift'])}); matcher launches {r['launches']} "
+              f"(match_features calls {r['match_calls']}), ba_update_state calls "
+              f"{r['ba_calls']} (expected {r['ba_expected']}){note}", flush=True)
+        _check_counts(f"4g {tag}", c, r)
+        cells[tag] = r
+        return r
+
+    def require(ok, what):
+        if not ok:
+            raise AssertionError(f"4g: {what}")
+
+    tracks = lambda r: r["finite"] and r["stage"] == S.STAGE_TRACKING
+    pct = lambda r, v: 100 * v / r["length"]
+
+    # (a) planar init under both selection rules: the JAX test's 512-keypoint
+    # configuration (gated), then the default width (recorded)
+    planar_frames, planar_gt = planar_seq
+    small = cfg.replace(
+        orb=dataclasses.replace(cfg.orb, max_keypoints=512, num_keypoints=4000),
+        ransac=dataclasses.replace(cfg.ransac, n_hypotheses=256, pnp_n_hypotheses=128),
+        map=dataclasses.replace(cfg.map, max_map_points=2048))
+    for width, base in (("512 keypoints", small), ("1024 keypoints", cfg)):
+        for ref in (True, False):
+            c = base.replace(init=dataclasses.replace(base.init, use_reference_selection=ref))
+            rule = "reference rule" if ref else "tournament rule"
+            r = run(f"planar {rule} {width}", c, planar_frames, planar_gt)
+            init = r["init_frame"]
+            print(f"4g planar {rule} {width}: H chosen at init "
+                  f"{None if init is None else bool(r['used_homography'][init])}", flush=True)
+            if base is cfg:
+                continue  # recorded, not gated
+            tag = f"planar {rule} {width}"
+            require(tracks(r), f"{tag}: final stage {r['stage']}, finite {r['finite']}")
+            require(init is not None and 0 < init <= 15, f"{tag}: init frame {init}")
+            require(not ref or r["used_homography"][init],
+                    f"{tag}: the reference selection rule picked E on a dominant plane")
+            require(r["ate"] < 0.08 * r["length"], f"{tag}: ATE {pct(r, r['ate']):.2f}% >= 8%")
+            require(r["tracking_ok"] >= PLANAR_FRAMES - init - 2,
+                    f"{tag}: tracking_ok on {r['tracking_ok']} frames")
+
+    # (b) the robustness matrix, default config, each row's budgets
+    clean, robust_gt = robust_seq
+    per_frame_kinds = ("blur", "low_contrast", "jpeg", "vignette")
+    for kind, sev, ate_budget, drift_budget in ROBUST_MATRIX:
+        if kind in per_frame_kinds:
+            fr = _per_frame(lambda f, k=kind, v=sev: syn.perturb_frames(f, k, v), clean)
+        else:
+            fr = syn.perturb_frames(clean, kind, sev)
+        tag = f"robustness {kind} {sev}"
+        r = run(tag, cfg, fr, robust_gt,
+                f"; budgets ATE {ate_budget}%, drift {drift_budget}%")
+        require(tracks(r), f"{tag}: final stage {r['stage']}, finite {r['finite']}")
+        require(pct(r, r["ate"]) < ate_budget, f"{tag}: ATE {pct(r, r['ate']):.2f}%")
+        require(pct(r, r["drift"]) < drift_budget, f"{tag}: drift {pct(r, r['drift']):.2f}%")
+    fr = syn.perturb_frames(syn.perturb_frames(clean, "low_contrast", 0.1), "noise", 6.0)
+    r = run("robustness severe (low_contrast 0.1, then noise 6.0)", cfg, fr, robust_gt,
+            f"; budget ATE {SEVERE_ATE}%")
+    require(r["finite"] and pct(r, r["ate"]) < SEVERE_ATE,
+            f"severe case: finite {r['finite']}, ATE {pct(r, r['ate']):.2f}%")
+
+    # (c) calibrate -> distort -> undistort -> track, then the undistort loop
+    ideal, chain_gt = chain_seq
+    ideal = ideal.astype(np.float64)
+    t0 = time.perf_counter()
+    K_cal, dist_cal, rms = tools.calibrate_camera(*_chessboard_views(K_TRUE, CHAIN_DIST), (W, H))
+    cal_s = time.perf_counter() - t0
+    print(f"4g chain: calibrated from 10 chessboard views in {cal_s:.2f} s: fx {K_cal[0, 0]:.4f} "
+          f"fy {K_cal[1, 1]:.4f} cx {K_cal[0, 2]:.4f} cy {K_cal[1, 2]:.4f} k1 {dist_cal[0]:.6f} "
+          f"k2 {dist_cal[1]:.6f}, rms {rms:.3e} px (true: 615, 615, 320, 240, "
+          f"{CHAIN_DIST[0]}, {CHAIN_DIST[1]})", flush=True)
+    require(rms < 0.1 and abs(K_cal[0, 0] - K_TRUE[0, 0]) < 3.0,
+            f"chain: calibration rms {rms}, fx {K_cal[0, 0]}")
+    t0 = time.perf_counter()
+    raw = _per_frame(lambda fs: np.stack([tools.distort_image(f, K_TRUE, CHAIN_DIST)
+                                          for f in fs]), ideal)
+    fr = _per_frame(lambda fs: np.stack([tools.undistort_image(f, K_cal, dist_cal)
+                                         for f in fs]), raw).astype(np.float32)
+    distorted = _per_frame(lambda fs: np.stack([tools.distort_image(f, K_TRUE, UNDISTORT_DIST)
+                                                for f in fs]), ideal)
+    undistorted = _per_frame(lambda fs: np.stack([
+        tools.undistort_image(f, K_TRUE, UNDISTORT_DIST) for f in fs]), distorted)
+    print(f"4g chain: {4 * CHAIN_FRAMES} distort/undistort calls in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    c = cfg.replace(dataset=dataclasses.replace(
+        cfg.dataset, fx=float(K_cal[0, 0]), fy=float(K_cal[1, 1]), cx=float(K_cal[0, 2]),
+        cy=float(K_cal[1, 2])))
+    r = run("chain (calibrated intrinsics, undistorted frames)", c, fr, chain_gt)
+    require(tracks(r) and pct(r, r["ate"]) < 6.0,
+            f"chain: final stage {r['stage']}, finite {r['finite']}, ATE {pct(r, r['ate']):.2f}%")
+    loop = {name: run(f"undistort loop, {name}", cfg, f, chain_gt)
+            for name, f in (("clean", ideal), ("undistorted", undistorted),
+                            ("raw distorted", distorted))}
+    a_clean, a_und, a_dist = (pct(loop[k], loop[k]["ate"])
+                              for k in ("clean", "undistorted", "raw distorted"))
+    require(tracks(loop["clean"]) and a_clean < 5.0, f"undistort loop: clean ATE {a_clean:.2f}%")
+    require(tracks(loop["undistorted"]), "undistort loop: the undistorted run does not track")
+    require(a_und < max(1.8 * a_clean, 5.0),
+            f"undistort loop: undistorted ATE {a_und:.2f}% against clean {a_clean:.2f}%")
+    require(a_dist > 1.5 * a_und,
+            f"undistort loop: raw distorted ATE {a_dist:.2f}% not above 1.5x {a_und:.2f}%")
+
+    # (d) bench cfg6, the reference-parity configuration, on phase 4's frames
+    c6 = cfg.replace(
+        orb=dataclasses.replace(cfg.orb, max_keypoints=1500),
+        init=dataclasses.replace(cfg.init, use_reference_selection=True),
+        ransac=dataclasses.replace(cfg.ransac, keyframe_use_ransac_filter=True),
+        ba=dataclasses.replace(cfg.ba, keyframe_window=False))
+    _drive(c6, frames[:WARM_FRAMES], gt[:WARM_FRAMES])  # set-up off the clock
+    r = run("cfg6", c6, frames, gt,
+            f" (1500 keypoints, reference selection rule, keyframe E-RANSAC filter, "
+            f"last-W-frames BA window); phase 4's cfg4 in this call {main['fps']:.2f} fps")
+    require(tracks(r) and r["n_fail"] <= 5 and pct(r, r["ate"]) < 3.0,
+            f"cfg6: final stage {r['stage']}, {r['n_fail']} failures, ATE "
+            f"{pct(r, r['ate']):.2f}%")
+    print(f"4g: {len(cells)} runs, phase 4g took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return cells
 
 
 _BANNER = re.compile(r"^frame +(\d+) \[(\w+) *\] .* (KF|  ) (ok|TRACK-FAIL)$", re.M)
@@ -564,7 +909,13 @@ def main() -> int:
     # r=50 with the union gate, keyframe update 1024x1024 r=100
     main_shapes = [("init", 1024, 1024, 100.0, False),
                    ("track", 1536, 1024, 50.0, True),
-                   ("keyframe", 1024, 1024, 100.0, False)]
+                   ("keyframe", 1024, 1024, 100.0, False),
+                   # phase 4g's cfg6 (1500 keypoints: the two-buffer ring, a
+                   # 476-point last stage) and planar width (512 keypoints)
+                   ("cfg6_init_keyframe", 1500, 1500, 100.0, False),
+                   ("cfg6_track", 1536, 1500, 50.0, True),
+                   ("planar_init_keyframe", 512, 512, 100.0, False),
+                   ("planar_track", 1536, 512, 50.0, True)]
     edge_cases = [("r0", _hamming_inputs(256, 512, 11), 0.0),
                   ("all_invalid", _hamming_inputs(256, 512, 12, invalid=1.0), 1e6),
                   ("tie", _tie_inputs(13), 1e6),
@@ -743,9 +1094,13 @@ def main() -> int:
     elapsed("phase 4")
     # ---- 4. main path: the default config (BA on), then BA off, then 5pt ---
     t0 = time.perf_counter()
-    (frames, gt), *batch_seqs = _render_all(
-        [(0, N_FRAMES, 0.04)] + [(seed, BATCH_FRAMES, 0.05) for seed in range(BATCH_SEQS)])
-    print(f"rendered {N_FRAMES} + {BATCH_SEQS} x {BATCH_FRAMES} frames in "
+    (frames, gt), *batch_seqs, robust_seq, chain_seq, planar_seq = _render_all(
+        [("bench", 0, N_FRAMES, 0.04)]
+        + [("bench", seed, BATCH_FRAMES, 0.05) for seed in range(BATCH_SEQS)]
+        + [("bench", 0, ROBUST_FRAMES, 0.05), ("bench", 0, CHAIN_FRAMES, 0.05),
+           ("planar", 0, PLANAR_FRAMES, 0.0)])
+    print(f"rendered {N_FRAMES} + {BATCH_SEQS} x {BATCH_FRAMES} + {ROBUST_FRAMES} + "
+          f"{CHAIN_FRAMES} + {PLANAR_FRAMES} (planar) frames in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     cfg = VOConfig()
     cfg_no_ba = cfg.replace(ba=dataclasses.replace(cfg.ba, enabled=False))
@@ -757,63 +1112,30 @@ def main() -> int:
     torch.cuda.synchronize()
 
     def run_path(name, c, n):
-        """Drive a fresh engine over the first n frames; the kernel and BA
-        counts are set to 0 just before and read just after."""
-        eng = VOEngine(c, H, W, seed=0, device="cuda")
-        torch.cuda.synchronize()
-        HM.hamming_nn_top2.launches = 0
-        BA.ba_update_state.calls = 0
-        est, n_fail, n_match, n_ba, stage, per_frame = [], 0, 0, 0, S.STAGE_BLANK, []
-        stamps = []  # host clock after each frame (add_frame reads its output back)
-        t0 = time.perf_counter()
-        for f in frames[:n]:
-            before = HM.hamming_nn_top2.launches
-            out = eng.add_frame(f)
-            stamps.append(time.perf_counter())
-            per_frame.append(HM.hamming_nn_top2.launches - before)
-            n_match += {S.STAGE_BLANK: 0, S.STAGE_INITIALIZING: 1}.get(
-                stage, 1 + int(bool(out.is_keyframe)))
-            n_ba += int(c.ba.enabled and stage == S.STAGE_TRACKING and bool(out.tracking_ok))
-            stage = int(out.stage)
-            if stage == S.STAGE_TRACKING and not bool(out.tracking_ok):
-                n_fail += 1
-            est.append(out.T_w_c.numpy())
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        r = dict(name=name, frames=n, wall_s=wall, fps=n / wall, stage=stage, n_fail=n_fail,
-                 launches=HM.hamming_nn_top2.launches, match_calls=n_match,
-                 ba_calls=BA.ba_update_state.calls, ba_expected=n_ba,
-                 ba_rejected=int(out.ba_rejected_total), per_frame_max=max(per_frame))
-        est = np.stack(est)
-        if not np.isfinite(est).all():
+        """:func:`_drive` over the first n frames of phase 4's sequence, held
+        to the main path's budgets."""
+        r = _drive(c, frames[:n], gt[:n])
+        if not np.isfinite(r["est"]).all():
             raise AssertionError(f"{name}: non-finite pose in the trajectory")
-        r["est"] = est
-        r["frame_ms"] = 1e3 * np.diff([t0] + stamps)
-        r["ate"] = metrics.ate_rmse(est, gt[:n])
-        r["length"] = metrics.trajectory_length(gt[:n])
+        est = r["est"]
         early_ate = metrics.ate_rmse(est[:EARLY_FRAMES], gt[:EARLY_FRAMES])
         early_len = metrics.trajectory_length(gt[:EARLY_FRAMES])
-        print(f"{name}: {n} frames in {wall:.2f} s = {r['fps']:.2f} fps; final stage {stage}, "
-              f"tracking failures {n_fail}, Sim3 ATE {r['ate']:.4f} on a {r['length']:.3f} "
-              f"path ({100 * r['ate'] / r['length']:.2f}%; over the first {EARLY_FRAMES} frames "
-              f"{early_ate:.4f} on {early_len:.3f}, {100 * early_ate / early_len:.2f}%), "
-              f"kernel launches {r['launches']}, "
-              f"match_features calls {n_match} (max {r['per_frame_max']} per frame), "
+        print(f"{name}: {n} frames in {r['wall_s']:.2f} s = {r['fps']:.2f} fps; final stage "
+              f"{r['stage']}, tracking failures {r['n_fail']}, Sim3 ATE {r['ate']:.4f} on a "
+              f"{r['length']:.3f} path ({100 * r['ate'] / r['length']:.2f}%; over the first "
+              f"{EARLY_FRAMES} frames {early_ate:.4f} on {early_len:.3f}, "
+              f"{100 * early_ate / early_len:.2f}%), kernel launches {r['launches']}, "
+              f"match_features calls {r['match_calls']} (max {r['per_frame_max']} per frame), "
               f"ba_update_state calls {r['ba_calls']} (tracking frames with tracking_ok "
-              f"{n_ba}), ba_rejected_total {r['ba_rejected']}", flush=True)
-        if stage != S.STAGE_TRACKING:
+              f"{r['ba_expected']}), ba_rejected_total {r['ba_rejected']}", flush=True)
+        if r["stage"] != S.STAGE_TRACKING:
             raise AssertionError(f"{name}: the VO never reached tracking")
-        if n_fail > 5:
-            raise AssertionError(f"{name}: {n_fail} tracking failures (budget 5)")
+        if r["n_fail"] > 5:
+            raise AssertionError(f"{name}: {r['n_fail']} tracking failures (budget 5)")
         if not r["ate"] < 0.03 * r["length"]:
             raise AssertionError(f"{name}: ATE {r['ate']:.4f} is not below 3% of the path "
                                  f"length {r['length']:.3f}")
-        if r["launches"] <= 0 or r["launches"] != n_match:
-            raise AssertionError(f"{name}: hamming_nn_top2 launched {r['launches']} times, "
-                                 f"expected {n_match} (one per match_features call)")
-        if r["ba_calls"] != n_ba or (c.ba.enabled and n_ba == 0):
-            raise AssertionError(f"{name}: ba_update_state ran {r['ba_calls']} times, expected "
-                                 f"{n_ba} (one per tracking frame whose tracking held)")
+        _check_counts(name, c, r)
         return r
 
     elapsed("phase 4, main path")
@@ -822,6 +1144,9 @@ def main() -> int:
     print(f"4a: in this call, BA on {main['fps']:.2f} fps against BA off {no_ba['fps']:.2f} "
           f"fps: {1e3 * (main['wall_s'] - no_ba['wall_s']) / max(main['ba_calls'], 1):.2f} ms "
           f"more per BA call", flush=True)
+
+    elapsed("phase 4, readback")
+    _phase_4_readback(cfg, frames)
 
     elapsed("phase 4b")
     # ---- 4b. where a tracking frame's time goes (profiler window) ----------
@@ -1103,6 +1428,9 @@ def main() -> int:
     elapsed("phase 4f")
     cli_launches = _phase_4f(frames, gt, main, run_path, cfg)
 
+    elapsed("phase 4g")
+    paths = _phase_4g(frames, gt, robust_seq, chain_seq, planar_seq, main, cfg)
+
     elapsed("phase 5")
     # ---- 5. kernels line and device line ---------------------------------
     track = shape_rows[1]
@@ -1113,6 +1441,8 @@ def main() -> int:
         "replaces": "monocular_visual_odometry_tpu/ops/pallas/hamming.py:125",
         "launches": main["launches"],
         "cli_launches": cli_launches,
+        "cfg6_launches": paths["cfg6"]["launches"],
+        "phase_4g_launches": {tag: r["launches"] for tag, r in paths.items()},
         "exact": True,
         "max_abs_err": max_err,
         "ms": track["ms"],

@@ -11,7 +11,9 @@ helpers it needs.
                 batched multi-stream step
 - ``utils``     config and its YAML loader, trajectory I/O and metrics,
                 checkpoints, stage timing
-- ``data``      the synthetic benchmark renderer (numpy)
+- ``data``      synthetic scenes, trajectories, perturbations and
+                correspondence sets (numpy); the offline camera tools
+                (calibration, undistortion, renaming)
 - ``runtime``   PNG decode/encode and the prefetching frame loader
 - ``viz``       annotated frames, trajectory plots, the HTML viewer
 - ``cli``       the command-line entry point

@@ -1,1 +1,1 @@
-"""Synthetic benchmark data (numpy)."""
+"""Synthetic scenes, sequences and perturbations; offline camera tools (numpy)."""

@@ -583,8 +583,36 @@ class VOEngine:
 
     def add_frame(self, img) -> S.StepOutput:
         """Process one grayscale image [H,W] (uint8 or float). Returns the
-        StepOutput with every field on the CPU."""
+        StepOutput with every field on the CPU, read back with one wait."""
         img = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(self.device)
         self.state, out = step(self.cfg, self.cam, self.state, img,
                                height=self.height, width=self.width)
-        return S.StepOutput(*(t.cpu() for t in out))
+        return output_to_host(out)
+
+
+def output_to_host(out: S.StepOutput) -> S.StepOutput:
+    """``out`` with every field on the CPU, same dtypes, shapes and values,
+    read back with one wait (:func:`_bytes_to_host`; a ``.cpu()`` per field
+    would wait once per field). CPU fields are returned as they are."""
+    on_card = [t for t in out if t.is_cuda]
+    if not on_card:
+        return out
+    back = iter(_bytes_to_host(on_card))
+    return S.StepOutput(*(next(back) if t.is_cuda else t for t in out))
+
+
+def _bytes_to_host(tensors: list) -> list:
+    """``tensors`` (on one device) on the CPU with one copy: their bytes
+    packed there into one uint8 tensor, copied once, and split on the host
+    into views of their dtypes and shapes. The segments go in order of
+    decreasing element size (powers of two), so each starts at a multiple of
+    its own element size and every view back is aligned."""
+    order = sorted(range(len(tensors)), key=lambda i: -tensors[i].element_size())
+    host = torch.cat([tensors[i].reshape(-1).view(torch.uint8) for i in order]).cpu()
+    out, at = [None] * len(tensors), 0
+    for i in order:
+        t = tensors[i]
+        n = t.numel() * t.element_size()
+        out[i] = host[at:at + n].view(t.dtype).reshape(t.shape)
+        at += n
+    return out

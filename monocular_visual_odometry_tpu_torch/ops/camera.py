@@ -40,6 +40,12 @@ def pixel2cam_norm_plane(uv: torch.Tensor, cam: Camera) -> torch.Tensor:
     return torch.stack([x, y], dim=-1)
 
 
+def pixel2cam(uv: torch.Tensor, cam: Camera, depth: torch.Tensor) -> torch.Tensor:
+    """Pixels (..., 2) + depth (...) -> 3-D camera-frame points (..., 3)."""
+    n = pixel2cam_norm_plane(uv, cam)
+    return torch.cat([n * depth[..., None], depth[..., None]], dim=-1)
+
+
 def cam2pixel(p_cam: torch.Tensor, cam: Camera) -> torch.Tensor:
     """Camera-frame 3-D points (..., 3) -> pixels (..., 2); no clamping."""
     z = p_cam[..., 2]
@@ -53,3 +59,8 @@ def in_frame(uv: torch.Tensor, height, width, border: float = 0.0) -> torch.Tens
     """Boolean mask of pixels inside the image (with border margin)."""
     u, v = uv[..., 0], uv[..., 1]
     return (u >= border) & (u < width - border) & (v >= border) & (v < height - border)
+
+
+def homogeneous(p: torch.Tensor) -> torch.Tensor:
+    """Append a 1 to the last axis."""
+    return torch.cat([p, torch.ones_like(p[..., :1])], dim=-1)

@@ -49,6 +49,11 @@ def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     return _eye3(phi, W.shape) + a[..., None, None] * W + b[..., None, None] * (W @ W)
 
 
+def rodrigues(rvec: torch.Tensor) -> torch.Tensor:
+    """Alias of :func:`so3_exp` (OpenCV naming)."""
+    return so3_exp(rvec)
+
+
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix -> axis-angle 3-vector (batched); the axis sign is
     arbitrary at exactly pi."""
@@ -137,6 +142,11 @@ def rt_to_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def T_to_rt(T: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return T[..., :3, :3], T[..., :3, 3]
+
+
+def T_to_rt34(T: torch.Tensor) -> torch.Tensor:
+    """4x4 -> 3x4 [R|t]."""
+    return T[..., :3, :]
 
 
 def inv_T(T: torch.Tensor) -> torch.Tensor:

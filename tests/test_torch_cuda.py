@@ -438,3 +438,40 @@ def test_checkpoint_on_card_resumes(card, tmp_path):
             torch.testing.assert_close(g, w, atol=1e-4, rtol=0, msg=name)
         else:
             assert torch.equal(g, w), name
+
+
+def _sync_warnings(fn):
+    """(fn(), the synchronizing CUDA calls ``fn`` made), counted by
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (the first use of the mode also warns that it is a prototype feature)
+    return out, sum(str(w.message).startswith("called a synchronizing CUDA operation")
+                    for w in caught)
+
+
+@pytest.mark.cuda
+def test_add_frame_reads_the_output_back_with_one_wait(card):
+    """After ``step`` returns, the readback of its StepOutput waits on the
+    stream once (one ``.cpu()`` per field waited once per field) and returns
+    every field with its dtype and value."""
+    cfg = VOConfig()
+    frames, _ = TSYN.render_sequence_arrays(12, seed=0, translation_step=0.05)
+    eng = TV.VOEngine(cfg, 480, 640, device="cuda")
+    for f in frames:
+        img = torch.from_numpy(f).cuda().float()
+        eng.state, out = TV.step(cfg, eng.cam, eng.state, img, height=480, width=640)
+        got, n_new = _sync_warnings(lambda: TV.output_to_host(out))
+        want, n_old = _sync_warnings(lambda: TS.StepOutput(*(t.cpu() for t in out)))
+        assert n_new == 1 and n_old == sum(t.is_cuda for t in out) > 1, (n_new, n_old)
+        for name, g, w in zip(got._fields, got, want):
+            assert g.device.type == "cpu" and g.dtype == w.dtype and torch.equal(g, w), name
+    assert int(out.stage) == TS.STAGE_TRACKING

@@ -34,6 +34,7 @@ from monocular_visual_odometry_tpu_torch import convert
 from monocular_visual_odometry_tpu_torch.data import synthetic as tsyn
 from monocular_visual_odometry_tpu_torch.models import ba as TB
 from monocular_visual_odometry_tpu_torch.models import state as TS
+from monocular_visual_odometry_tpu_torch.models import vo as TV
 from monocular_visual_odometry_tpu_torch.models.vo import VOEngine as TEngine
 from monocular_visual_odometry_tpu_torch.ops import lie as tlie
 from monocular_visual_odometry_tpu_torch.utils import metrics as tmetrics
@@ -223,6 +224,27 @@ def test_engine_refuses_what_it_cannot_run():
             TEngine(convert.config_to_torch(dataclasses.asdict(_small_cfg())), 480, 640)
 
 
+def test_add_frame_returns_the_step_output_on_the_host(sequence):
+    """``add_frame`` hands back ``step``'s output field for field: the same
+    dtypes, shapes and values (on the CPU the readback leaves the tensors
+    as they are); the byte packing of the card's readback gives them back
+    exactly."""
+    cfg = _port_cfg(ba=True)
+    eng = TEngine(cfg, 480, 640, device="cpu")
+    st = TS.init_state(cfg, 0, "cpu")
+    for f in sequence[0][:3]:
+        got = eng.add_frame(f)
+        st, want = TV.step(cfg, eng.cam, st, torch.from_numpy(f).to(torch.float32),
+                           height=480, width=640)
+        assert TV.output_to_host(want) is want
+        # the card's path packs the fields' bytes into one copy: here on CPU tensors
+        packed = TV._bytes_to_host(list(want))
+        for name, g, p, w in zip(TS.StepOutput._fields, got, packed, want):
+            for x in (g, p):
+                assert x.device.type == "cpu" and x.dtype == w.dtype, name
+                assert x.shape == w.shape and torch.equal(x, w), name
+
+
 def _port_files():
     return sorted((ROOT / "monocular_visual_odometry_tpu_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py"]
@@ -231,9 +253,10 @@ def _port_files():
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
 def test_port_imports_no_jax(path):
     """No import of jax or of the JAX package anywhere in the port or in
-    chip_smoke.py, none of yaml or PIL either (the card's machine has
-    neither), and matplotlib only inside functions. Imports by name
-    (``importlib.import_module``, ``__import__``) count too."""
+    chip_smoke.py, none of yaml or PIL either (the port depends on neither),
+    no scipy (the port has its own rotations, blur and LM), and matplotlib
+    only inside functions. Imports by name (``importlib.import_module``,
+    ``__import__``) count too."""
     tree = ast.parse(path.read_text(), filename=str(path))
     in_function = set()
     for fn in ast.walk(tree):
@@ -253,7 +276,8 @@ def test_port_imports_no_jax(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "monocular_visual_odometry_tpu", "yaml", "PIL"), \
+            assert root not in ("jax", "jaxlib", "monocular_visual_odometry_tpu", "yaml", "PIL",
+                                "scipy"), \
                 f"{path.name}:{node.lineno} imports {name}"
             if root == "matplotlib":
                 assert id(node) in in_function, \
