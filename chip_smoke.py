@@ -55,10 +55,10 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    the whole B=1 run the single-stream run, and its ATE within max(0.02,
    half) of its single-stream ATE or not above the worst single-stream ATE
    of the call (at B > 1 rounding can flip a keyframe decision, after which
-   the keys part and the run is another run); profiles 5 batched steps per B
-   (device kernels per step: B=8 at most 1.5x B=1), runs one B=8 vmapped body
-   under ``set_sync_debug_mode("error")`` and holds one B=2 step against a CPU
-   copy fed the same draws (matches, inliers and map points within 5%, the
+   the keys part and the run is another run); profiles 2 batched steps at
+   B = 1 and 8 (device kernels per step: B=8 at most 1.5x B=1), runs one B=8
+   vmapped body under ``set_sync_debug_mode("error")`` and holds one B=2 step
+   against a CPU copy fed the same draws (matches, inliers and map points within 5%, the
    other counts equal, poses within 1e-3);
    4f. the command-line entry point: writes phase 4's 150 frames and their
    ground truth with the port's PNG writer and trajectory I/O to
@@ -95,7 +95,31 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    ``tests/test_undistort_loop.py`` (clean, undistorted, raw distorted);
    bench's reference-parity cfg6 (1500 keypoints, reference rule, keyframe
    E-RANSAC filter, last-W-frames BA window) over phase 4's 150 frames (ATE
-   < 3%, <= 5 failures), its fps beside phase 4's;
+   < 3%, <= 5 failures), its fps beside phase 4's; every cell but cfg6 runs
+   in a pool of four processes, four at once (their fps is with the others
+   running);
+   4h. the mesh route (``parallel/``: BA sharded over the ranks of a process
+   group, ``VOEngine(mesh=...)``): (a) a one-rank NCCL world over a file store
+   in ``build/4h/``: the default config over phase 4's 150 frames with phase
+   4's budgets, matcher launches = ``match_features`` calls and
+   ``ba_update_state_dist`` calls = tracking frames, the largest pose distance
+   to phase 4's run and the fps beside it; (b) tests/test_dist_pipeline.py's
+   512-keypoint configuration over its 18 frames, landmarks fixed and joint,
+   the mesh route against the single-device route with that test's gates; (c)
+   two processes on the one card over gloo (NCCL refuses two ranks on one
+   device): ``python -m ...parallel.multihost`` at its defaults and with
+   ``--deterministic``, with tests/test_multihost.py's gates, then the mesh
+   route at full width over (b)'s frames in both modes (each rank's poses
+   equal rank 0's bitwise, (b)'s gates against (a)'s one-rank engine); (d)
+   ``scaling.make_problem``'s live shape (W 5, K 1,024, M 4,096, 20 LM
+   iterations, joint) at D = 1 (NCCL) and D = 2 (gloo): ms per solve by CUDA
+   events and by the host clock and device kernels per solve, beside the
+   single-device ``ba_solve`` in turns, and one LM iteration's collectives
+   equal to ``scaling.comm_model``'s terms at that D; and, in a process of its
+   own started with (c), NCCL's collective timeout: a
+   collective enqueued behind a kernel that holds the stream longer than the
+   timeout is flagged by the watchdog when the timeout passes, and the
+   process ends with a non-zero code;
 5. prints one JSON line describing the kernels, then, as the last line, the
    device JSON.
 
@@ -106,6 +130,9 @@ B=3 ragged with a stream without valid queries and one with a single valid
 train point, B=3 with K2=1) against the plain version per stream and times
 one batched launch against B single launches.
 The sequences are rendered by a pool of processes at the start of phase 4.
+Phase 4h starts this script again as its child processes (``--nccl-timeout``,
+``--mesh-rank``, ``--live-rank``: see :func:`_child`); run with no arguments,
+it runs every phase.
 """
 
 from __future__ import annotations
@@ -122,6 +149,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
@@ -134,7 +162,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 150
 H, W = 480, 640
-PROFILE_FROM, PROFILE_FRAMES = 40, 20  # a steady tracking window
+PROFILE_FROM, PROFILE_FRAMES = 40, 10  # a steady tracking window
 WARM_FRAMES = 10         # frames of a throw-away engine per config, to reach BA
 BA_TOL = 1e-4            # ba_update_state, card against CPU (tests/test_torch_cuda.py)
 EARLY_FRAMES = 60        # also read the ATE over these first frames: the 3% budget
@@ -144,9 +172,12 @@ EARLY_FRAMES = 60        # also read the ATE over these first frames: the 3% bud
 POPC_PER_SM_CLK = 16
 LOGIC_PER_SM_CLK = 64    # 32-bit bitwise AND/OR/XOR, same table
 GRAPH_CALLS = 20         # calls captured in one CUDA graph for device timing
-BATCH_SEQS, BATCH_FRAMES, BATCH_WARM = 8, 60, 15  # phase 4e: streams, frames, warm-up
+# phase 4e: streams, frames, warm-up; the ATE band of its B > 1 runs holds at
+# 60 frames, not at 45
+BATCH_SEQS, BATCH_FRAMES, BATCH_WARM = 8, 60, 15
 BATCH_SIZES = (1, 2, 4, 8)
-BATCH_PROFILE_STEPS = 5
+BATCH_PROFILED = (1, 8)  # the batch sizes 4e profiles (their kernel counts are compared)
+BATCH_PROFILE_STEPS = 2  # profiled steps per batch size (the profiler's events are slow)
 CLI_CHECKPOINT_EVERY, CLI_RESUME_FROM = 50, 100  # phase 4f: resume from state_00099.npz
 CLI_CONFIG_FRAMES = 30   # phase 4f: frames of the --config run
 POSE_TOL = 1e-4          # phase 4f: CLI and resumed poses against the in-process runs
@@ -157,6 +188,7 @@ READBACK_FROM, READBACK_FRAMES = 40, 20  # phase 4: add_frame's readback, tracki
 # depth its budgets were set at in the JAX package's tests
 PLANAR_FRAMES = 40       # tests/test_planar_sequence.py
 ROBUST_FRAMES = 150      # tests/test_robustness.py
+CELL_WORKERS = 4         # 4g's cells but cfg6 run this many at once, a process each
 CHAIN_FRAMES = 40        # tests/test_tools_chain.py, tests/test_undistort_loop.py
 # (kind, severity, ATE budget, end-drift budget; % of the path): the MATRIX of
 # tests/test_robustness.py, then its severe case (low contrast 0.1, then noise 6)
@@ -168,6 +200,15 @@ SEVERE_ATE = 30.0        # % of the path: bounded, not accurate
 K_TRUE = np.array([[615.0, 0, 320], [0, 615, 240], [0, 0, 1.0]])
 CHAIN_DIST = np.array([-0.28, 0.09])     # the chain's true lens (test_tools_chain.py)
 UNDISTORT_DIST = np.array([-0.30, 0.09])  # the undistort loop's lens (test_undistort_loop.py)
+# phase 4h, the mesh route (BA sharded over the ranks of a process group)
+DIST_FRAMES = 18         # tests/test_dist_pipeline.py's sequence: make_trajectory(18, 0, 0.05)
+# (largest translation distance, |dATE|) per BA mode: tests/test_dist_pipeline.py
+DIST_GATES = {"fixed": (0.02, 0.01), "joint": (0.05, 0.03)}
+MESH_TIMEOUT_S = 120.0   # the 4h worlds' collective timeout
+CHILD_TIMEOUT_S = 300    # a 4h child process must end within this
+NCCL_SLEEP_S, NCCL_TIMEOUT_S = 10.0, 5.0  # the NCCL timeout check: stream busy, then a collective
+LIVE = dict(W=5, K=1024, M=4096)  # scaling.make_problem's live shape, joint mode
+LIVE_ITERS, LIVE_TURNS, LIVE_REPS = 20, 4, 3
 FP32_PEAK = 67e12        # H100 SXM, non-tensor fp32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 # PR 1's wrapper (hamming.py) and kernel (hamming_nn_top2.cu), for the A/B
@@ -313,6 +354,29 @@ def _render(job):
                                       span=(lo, hi))
 
 
+@contextlib.contextmanager
+def _one_blas_thread():
+    """Processes started inside the block use one BLAS thread each."""
+    threads = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                                               "MKL_NUM_THREADS")}
+    os.environ.update({k: "1" for k in threads})
+    try:
+        yield
+    finally:
+        for k, v in threads.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _drive_job(args):
+    """:func:`_drive` in a pool process (phase 4g's cells)."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    return _drive(*args)
+
+
 def _render_all(seqs):
     """[(frames, gt)] for (kind, seed, n_frames, translation_step) in ``seqs``,
     rendered in chunks by a pool of processes (closed before returning)."""
@@ -320,19 +384,10 @@ def _render_all(seqs):
             for kind, seed, n, step in seqs for lo in range(0, n, RENDER_CHUNK)]
     # one BLAS thread per worker: the workers are as many as the cores
     # (with a pool of threads each, rendering took 4x as long)
-    threads = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
-                                               "MKL_NUM_THREADS")}
-    os.environ.update({k: "1" for k in threads})
-    try:
-        with ProcessPoolExecutor(max_workers=min(len(jobs), os.cpu_count() or 1),
-                                 mp_context=multiprocessing.get_context("spawn")) as ex:
-            parts = iter(list(ex.map(_render, jobs)))
-    finally:
-        for k, v in threads.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    with _one_blas_thread(), ProcessPoolExecutor(
+            max_workers=min(len(jobs), os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        parts = iter(list(ex.map(_render, jobs)))
     out = []
     for _, _, n, _ in seqs:
         chunk = [next(parts) for _ in range(0, n, RENDER_CHUNK)]
@@ -352,24 +407,27 @@ def _batched_inputs(b, k1, k2, seed, *, alt=False, ragged=False):
     return tuple(None if ts[0] is None else torch.stack(ts) for ts in zip(*streams))
 
 
-def _drive(cfg, frames, gt):
+def _drive(cfg, frames, gt, mesh=None):
     """Drive a fresh ``VOEngine`` on the card over ``frames`` (the user's entry
-    point, one ``add_frame`` per frame); the kernel and BA counts are set to 0
-    just before and read just after. Returns the run's record: trajectory,
-    host ms per frame, fps, per-frame diagnostics, the counts and what they
-    should be (``match_features`` calls and tracking frames whose tracking
-    held, from the frames' stages), Sim(3) ATE and end drift against ``gt``
-    (inf where a pose is not finite)."""
+    point, one ``add_frame`` per frame; ``mesh``: the mesh route, BA sharded);
+    the kernel and BA counts are set to 0 just before and read just after.
+    Returns the run's record: trajectory, host ms per frame, fps, per-frame
+    diagnostics, the counts and what they should be (``match_features`` calls;
+    BA: tracking frames whose tracking held, or on the mesh route every
+    tracking frame, from the frames' stages), Sim(3) ATE and end drift
+    against ``gt`` (inf where a pose is not finite)."""
     from monocular_visual_odometry_tpu_torch.models import ba as BA
     from monocular_visual_odometry_tpu_torch.models import state as S
     from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
     from monocular_visual_odometry_tpu_torch.ops.cuda import hamming as HM
+    from monocular_visual_odometry_tpu_torch.parallel import dist_ba as DB
     from monocular_visual_odometry_tpu_torch.utils import metrics
 
-    eng = VOEngine(cfg, H, W, seed=0, device="cuda")
+    eng = VOEngine(cfg, H, W, seed=0, device="cuda", mesh=mesh)
     torch.cuda.synchronize()
     HM.hamming_nn_top2.launches = 0
     BA.ba_update_state.calls = 0
+    DB.ba_update_state_dist.calls = 0
     outs, n_fail, n_match, n_ba, stage, per_frame = [], 0, 0, 0, S.STAGE_BLANK, []
     stamps = []  # host clock after each frame (add_frame reads its output back)
     t0 = time.perf_counter()
@@ -380,7 +438,8 @@ def _drive(cfg, frames, gt):
         per_frame.append(HM.hamming_nn_top2.launches - before)
         n_match += {S.STAGE_BLANK: 0, S.STAGE_INITIALIZING: 1}.get(
             stage, 1 + int(bool(out.is_keyframe)))
-        n_ba += int(cfg.ba.enabled and stage == S.STAGE_TRACKING and bool(out.tracking_ok))
+        n_ba += int(cfg.ba.enabled and stage == S.STAGE_TRACKING
+                    and (mesh is not None or bool(out.tracking_ok)))
         stage = int(out.stage)
         if stage == S.STAGE_TRACKING and not bool(out.tracking_ok):
             n_fail += 1
@@ -394,8 +453,10 @@ def _drive(cfg, frames, gt):
     tracking = stages == S.STAGE_TRACKING
     return dict(
         frames=n, wall_s=wall, fps=n / wall, stage=stage, n_fail=n_fail,
-        launches=HM.hamming_nn_top2.launches, match_calls=n_match,
-        ba_calls=BA.ba_update_state.calls, ba_expected=n_ba,
+        launches=HM.hamming_nn_top2.launches, match_calls=n_match, mesh=mesh is not None,
+        ba_calls=DB.ba_update_state_dist.calls if mesh else BA.ba_update_state.calls,
+        other_ba_calls=BA.ba_update_state.calls if mesh else DB.ba_update_state_dist.calls,
+        ba_expected=n_ba,
         ba_rejected=int(outs[-1].ba_rejected_total), per_frame_max=max(per_frame), est=est,
         frame_ms=1e3 * np.diff([t0] + stamps), finite=finite,
         ate=metrics.ate_rmse(est, gt) if finite else float("inf"),
@@ -408,15 +469,33 @@ def _drive(cfg, frames, gt):
         median_keypoints=float(np.median([int(o.n_keypoints) for o in outs])))
 
 
+def _device_kernels(prof):
+    """(name, device ms, count) per kernel name, most time first: summed over
+    the trace's device events directly (``key_averages()`` takes minutes over
+    the ~10^5 events of a profiled window)."""
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return sorted(((k, ms, n) for k, (ms, n) in by_name.items() if ms > 0),
+                  key=lambda r: -r[1])
+
+
 def _check_counts(name, cfg, r):
     """The kernel launched once per ``match_features`` call, BA ran once per
-    tracking frame whose tracking held."""
+    tracking frame whose tracking held (the mesh route: ``ba_update_state_dist``
+    once per tracking frame, and the single-device BA never)."""
     if r["launches"] <= 0 or r["launches"] != r["match_calls"]:
         raise AssertionError(f"{name}: hamming_nn_top2 launched {r['launches']} times, "
                              f"expected {r['match_calls']} (one per match_features call)")
+    fn, per = (("ba_update_state_dist", "tracking frame") if r["mesh"] else
+               ("ba_update_state", "tracking frame whose tracking held"))
     if r["ba_calls"] != r["ba_expected"] or (cfg.ba.enabled and r["ba_expected"] == 0):
-        raise AssertionError(f"{name}: ba_update_state ran {r['ba_calls']} times, expected "
-                             f"{r['ba_expected']} (one per tracking frame whose tracking held)")
+        raise AssertionError(f"{name}: {fn} ran {r['ba_calls']} times, expected "
+                             f"{r['ba_expected']} (one per {per})")
+    if r["other_ba_calls"]:
+        raise AssertionError(f"{name}: the other BA route ran {r['other_ba_calls']} times")
 
 
 def _sync_calls(fn):
@@ -523,8 +602,7 @@ def _phase_4g(frames, gt, robust_seq, chain_seq, planar_seq, main, cfg):
     t_phase = time.perf_counter()
     cells = {}
 
-    def run(tag, c, fr, poses, note=""):
-        r = _drive(c, fr, poses)
+    def report(tag, c, r, note=""):
         share = lambda v: f"{100 * v / r['length']:.2f}%"
         print(f"4g {tag}: {r['frames']} frames in {r['wall_s']:.2f} s = {r['fps']:.2f} fps; final "
               f"stage {r['stage']}, finite {r['finite']}, init frame {r['init_frame']}, tracking "
@@ -545,6 +623,10 @@ def _phase_4g(frames, gt, robust_seq, chain_seq, planar_seq, main, cfg):
     tracks = lambda r: r["finite"] and r["stage"] == S.STAGE_TRACKING
     pct = lambda r, v: 100 * v / r["length"]
 
+    # the cells of (a)-(c): their inputs first, then every engine in a pool of
+    # CELL_WORKERS processes (the step is host-bound: they share the card,
+    # not a core), then each cell's report and gates in order
+    jobs = []                                  # (tag, config, frames, gt, note)
     # (a) planar init under both selection rules: the JAX test's 512-keypoint
     # configuration (gated), then the default width (recorded)
     planar_frames, planar_gt = planar_seq
@@ -556,21 +638,7 @@ def _phase_4g(frames, gt, robust_seq, chain_seq, planar_seq, main, cfg):
         for ref in (True, False):
             c = base.replace(init=dataclasses.replace(base.init, use_reference_selection=ref))
             rule = "reference rule" if ref else "tournament rule"
-            r = run(f"planar {rule} {width}", c, planar_frames, planar_gt)
-            init = r["init_frame"]
-            print(f"4g planar {rule} {width}: H chosen at init "
-                  f"{None if init is None else bool(r['used_homography'][init])}", flush=True)
-            if base is cfg:
-                continue  # recorded, not gated
-            tag = f"planar {rule} {width}"
-            require(tracks(r), f"{tag}: final stage {r['stage']}, finite {r['finite']}")
-            require(init is not None and 0 < init <= 15, f"{tag}: init frame {init}")
-            require(not ref or r["used_homography"][init],
-                    f"{tag}: the reference selection rule picked E on a dominant plane")
-            require(r["ate"] < 0.08 * r["length"], f"{tag}: ATE {pct(r, r['ate']):.2f}% >= 8%")
-            require(r["tracking_ok"] >= PLANAR_FRAMES - init - 2,
-                    f"{tag}: tracking_ok on {r['tracking_ok']} frames")
-
+            jobs.append((f"planar {rule} {width}", c, planar_frames, planar_gt, ""))
     # (b) the robustness matrix, default config, each row's budgets
     clean, robust_gt = robust_seq
     per_frame_kinds = ("blur", "low_contrast", "jpeg", "vignette")
@@ -579,18 +647,11 @@ def _phase_4g(frames, gt, robust_seq, chain_seq, planar_seq, main, cfg):
             fr = _per_frame(lambda f, k=kind, v=sev: syn.perturb_frames(f, k, v), clean)
         else:
             fr = syn.perturb_frames(clean, kind, sev)
-        tag = f"robustness {kind} {sev}"
-        r = run(tag, cfg, fr, robust_gt,
-                f"; budgets ATE {ate_budget}%, drift {drift_budget}%")
-        require(tracks(r), f"{tag}: final stage {r['stage']}, finite {r['finite']}")
-        require(pct(r, r["ate"]) < ate_budget, f"{tag}: ATE {pct(r, r['ate']):.2f}%")
-        require(pct(r, r["drift"]) < drift_budget, f"{tag}: drift {pct(r, r['drift']):.2f}%")
+        jobs.append((f"robustness {kind} {sev}", cfg, fr, robust_gt,
+                     f"; budgets ATE {ate_budget}%, drift {drift_budget}%"))
     fr = syn.perturb_frames(syn.perturb_frames(clean, "low_contrast", 0.1), "noise", 6.0)
-    r = run("robustness severe (low_contrast 0.1, then noise 6.0)", cfg, fr, robust_gt,
-            f"; budget ATE {SEVERE_ATE}%")
-    require(r["finite"] and pct(r, r["ate"]) < SEVERE_ATE,
-            f"severe case: finite {r['finite']}, ATE {pct(r, r['ate']):.2f}%")
-
+    jobs.append(("robustness severe (low_contrast 0.1, then noise 6.0)", cfg, fr, robust_gt,
+                 f"; budget ATE {SEVERE_ATE}%"))
     # (c) calibrate -> distort -> undistort -> track, then the undistort loop
     ideal, chain_gt = chain_seq
     ideal = ideal.astype(np.float64)
@@ -617,12 +678,50 @@ def _phase_4g(frames, gt, robust_seq, chain_seq, planar_seq, main, cfg):
     c = cfg.replace(dataset=dataclasses.replace(
         cfg.dataset, fx=float(K_cal[0, 0]), fy=float(K_cal[1, 1]), cx=float(K_cal[0, 2]),
         cy=float(K_cal[1, 2])))
-    r = run("chain (calibrated intrinsics, undistorted frames)", c, fr, chain_gt)
+    jobs.append(("chain (calibrated intrinsics, undistorted frames)", c, fr, chain_gt, ""))
+    for name, f in (("clean", ideal), ("undistorted", undistorted),
+                    ("raw distorted", distorted)):
+        jobs.append((f"undistort loop, {name}", cfg, f, chain_gt, ""))
+
+    t0 = time.perf_counter()
+    with _one_blas_thread(), ProcessPoolExecutor(
+            max_workers=CELL_WORKERS, mp_context=multiprocessing.get_context("spawn")) as ex:
+        runs = list(ex.map(_drive_job, [(c, fr, g) for _, c, fr, g, _ in jobs]))
+    print(f"4g: {len(jobs)} cells (planar, robustness, chain and undistort loop), "
+          f"{CELL_WORKERS} at once, in {time.perf_counter() - t0:.1f} s (each cell's fps is "
+          f"with the others running)", flush=True)
+    runs = {tag: report(tag, c, r, note) for (tag, c, _, _, note), r in zip(jobs, runs)}
+
+    for width in ("512 keypoints", "1024 keypoints"):
+        for ref in (True, False):
+            rule = "reference rule" if ref else "tournament rule"
+            tag = f"planar {rule} {width}"
+            r = runs[tag]
+            init = r["init_frame"]
+            print(f"4g {tag}: H chosen at init "
+                  f"{None if init is None else bool(r['used_homography'][init])}", flush=True)
+            if width == "1024 keypoints":
+                continue  # recorded, not gated
+            require(tracks(r), f"{tag}: final stage {r['stage']}, finite {r['finite']}")
+            require(init is not None and 0 < init <= 15, f"{tag}: init frame {init}")
+            require(not ref or r["used_homography"][init],
+                    f"{tag}: the reference selection rule picked E on a dominant plane")
+            require(r["ate"] < 0.08 * r["length"], f"{tag}: ATE {pct(r, r['ate']):.2f}% >= 8%")
+            require(r["tracking_ok"] >= PLANAR_FRAMES - init - 2,
+                    f"{tag}: tracking_ok on {r['tracking_ok']} frames")
+    for kind, sev, ate_budget, drift_budget in ROBUST_MATRIX:
+        tag = f"robustness {kind} {sev}"
+        r = runs[tag]
+        require(tracks(r), f"{tag}: final stage {r['stage']}, finite {r['finite']}")
+        require(pct(r, r["ate"]) < ate_budget, f"{tag}: ATE {pct(r, r['ate']):.2f}%")
+        require(pct(r, r["drift"]) < drift_budget, f"{tag}: drift {pct(r, r['drift']):.2f}%")
+    r = runs["robustness severe (low_contrast 0.1, then noise 6.0)"]
+    require(r["finite"] and pct(r, r["ate"]) < SEVERE_ATE,
+            f"severe case: finite {r['finite']}, ATE {pct(r, r['ate']):.2f}%")
+    r = runs["chain (calibrated intrinsics, undistorted frames)"]
     require(tracks(r) and pct(r, r["ate"]) < 6.0,
             f"chain: final stage {r['stage']}, finite {r['finite']}, ATE {pct(r, r['ate']):.2f}%")
-    loop = {name: run(f"undistort loop, {name}", cfg, f, chain_gt)
-            for name, f in (("clean", ideal), ("undistorted", undistorted),
-                            ("raw distorted", distorted))}
+    loop = {k: runs[f"undistort loop, {k}"] for k in ("clean", "undistorted", "raw distorted")}
     a_clean, a_und, a_dist = (pct(loop[k], loop[k]["ate"])
                               for k in ("clean", "undistorted", "raw distorted"))
     require(tracks(loop["clean"]) and a_clean < 5.0, f"undistort loop: clean ATE {a_clean:.2f}%")
@@ -639,15 +738,315 @@ def _phase_4g(frames, gt, robust_seq, chain_seq, planar_seq, main, cfg):
         ransac=dataclasses.replace(cfg.ransac, keyframe_use_ransac_filter=True),
         ba=dataclasses.replace(cfg.ba, keyframe_window=False))
     _drive(c6, frames[:WARM_FRAMES], gt[:WARM_FRAMES])  # set-up off the clock
-    r = run("cfg6", c6, frames, gt,
-            f" (1500 keypoints, reference selection rule, keyframe E-RANSAC filter, "
-            f"last-W-frames BA window); phase 4's cfg4 in this call {main['fps']:.2f} fps")
+    r = report("cfg6", c6, _drive(c6, frames, gt),
+               f" (1500 keypoints, reference selection rule, keyframe E-RANSAC filter, "
+               f"last-W-frames BA window); phase 4's cfg4 in this call {main['fps']:.2f} fps")
     require(tracks(r) and r["n_fail"] <= 5 and pct(r, r["ate"]) < 3.0,
             f"cfg6: final stage {r['stage']}, {r['n_fail']} failures, ATE "
             f"{pct(r, r['ate']):.2f}%")
     print(f"4g: {len(cells)} runs, phase 4g took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return cells
+
+
+def _dist_cfg(cfg, mode, small=False):
+    """``cfg`` (or, ``small``, tests/test_dist_pipeline.py's 512-keypoint
+    configuration: 2,048 map slots, 256/128 hypotheses, 10 LM iterations) with
+    the landmarks fixed or joint."""
+    if small:
+        cfg = cfg.replace(
+            orb=dataclasses.replace(cfg.orb, max_keypoints=512, num_keypoints=4000),
+            ransac=dataclasses.replace(cfg.ransac, n_hypotheses=256, pnp_n_hypotheses=128),
+            map=dataclasses.replace(cfg.map, max_map_points=2048),
+            ba=dataclasses.replace(cfg.ba, iterations=10))
+    return cfg.replace(ba=dataclasses.replace(cfg.ba, fix_map_points=mode == "fixed"))
+
+
+def _live_shape(mesh):
+    """``scaling.measure`` and ``scaling.measure_comm`` at the live shape
+    (joint, LIVE_ITERS iterations) on ``mesh``, on the card: ms per solve of
+    the sharded LM and of ``ba_solve`` in turns, device kernels per solve,
+    and one LM iteration's collectives, which must equal
+    ``scaling.comm_model``'s terms (raises otherwise)."""
+    from monocular_visual_odometry_tpu_torch.parallel import scaling as SC
+
+    rec = SC.measure(mesh, **LIVE, iterations=LIVE_ITERS, turns=LIVE_TURNS, reps=LIVE_REPS,
+                     device="cuda")
+    comm = SC.measure_comm(mesh, **LIVE, iterations=LIVE_ITERS, device="cuda")
+    it, model, sizes = (comm["measured_per_iteration"], comm["model_by_op"],
+                        comm["model_result_bytes"])
+    rec.update(iteration_collectives=it["collectives"], iteration_bytes_by_op=it["by_op"],
+               model_bytes_by_op=model, iteration_result_bytes=it["result_by_op"],
+               model_result_bytes=sizes,
+               matmul_flops_per_iteration=comm["matmul_flops_per_rank_per_iteration"])
+    bad = [op for op in model if abs(it["by_op"].get(op, 0.0) - model[op]) > 0.2
+           or it["result_by_op"].get(op, 0) != sizes[op]]
+    if it["collectives"] != 5 or bad:
+        raise AssertionError(f"4h live shape, D={mesh.size}: one LM iteration's collectives "
+                             f"({it}) are not comm_model's ({model}, sizes {sizes}): {bad}")
+    return rec
+
+
+def _child(argv) -> int:
+    """The processes phase 4h starts (``python3 chip_smoke.py --<role> ...``).
+
+    - ``--nccl-timeout STORE CYCLES``: a one-rank NCCL world with a
+      NCCL_TIMEOUT_S timeout; the stream is kept busy CYCLES clock cycles, then
+      a collective is enqueued: NCCL's watchdog must end the process;
+    - ``--mesh-rank RANK WORLD STORE FRAMES OUT``: one rank of a gloo world on
+      the card driving ``VOEngine(mesh=...)`` over the frames, BA fixed then
+      joint, at full width; poses, stages and counts to OUT;
+    - ``--live-rank RANK WORLD STORE OUT``: one rank of a gloo world on the card
+      running :func:`_live_shape`; its record to OUT (JSON)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    torch.cuda.set_device(0)
+    from monocular_visual_odometry_tpu_torch.parallel import mesh as PM
+
+    role = argv[0]
+    if role == "--nccl-timeout":
+        store, cycles = argv[1], int(argv[2])
+        PM.init_distributed(f"file://{store}", 1, 0, backend="nccl", timeout_s=NCCL_TIMEOUT_S)
+        mesh = PM.points_mesh()
+        x = torch.ones(4, device="cuda")
+        mesh.psum(x)
+        torch.cuda.synchronize()
+        print(f"enqueued at {time.time():.3f}", flush=True)
+        torch.cuda._sleep(cycles)
+        mesh.psum(x)
+        torch.cuda.synchronize()
+        print("the collective returned", flush=True)
+        return 0
+    rank, world, store = int(argv[1]), int(argv[2]), argv[3]
+    PM.init_distributed(f"file://{store}", world, rank, backend="gloo", timeout_s=MESH_TIMEOUT_S)
+    mesh = PM.points_mesh()
+    if role == "--live-rank":
+        rec = _live_shape(mesh)
+        Path(argv[4]).write_text(json.dumps(rec))
+    elif role == "--mesh-rank":
+        from monocular_visual_odometry_tpu_torch.utils.config import VOConfig
+
+        with np.load(argv[4]) as z:
+            frames, gt = z["frames"], z["gt"]
+        out = {}
+        for mode in DIST_GATES:
+            c = _dist_cfg(VOConfig(), mode)
+            r = _drive(c, frames, gt, mesh=mesh)
+            _check_counts(f"4h rank {rank} {mode}", c, r)
+            out.update({f"{mode}_est": r["est"], f"{mode}_launches": r["launches"],
+                        f"{mode}_ba_calls": r["ba_calls"], f"{mode}_stage": r["stage"],
+                        f"{mode}_n_fail": r["n_fail"]})
+        np.savez(argv[5], **out)
+    else:
+        raise ValueError(f"chip_smoke: unknown role {role}")
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _popen(cmd, log):
+    """``cmd`` in the repo's root, its output to the file ``log``."""
+    with open(log, "w") as f:
+        return subprocess.Popen([str(c) for c in cmd], cwd=ROOT, stdout=f,
+                                stderr=subprocess.STDOUT)
+
+
+def _spawn(args, log):
+    """A child of this script (:func:`_child`) on the card, output to ``log``."""
+    return _popen([sys.executable, os.path.abspath(__file__), *args], log)
+
+
+def _wait(procs, logs, what):
+    """Wait for ``procs`` (killing them all at CHILD_TIMEOUT_S); raise with
+    the end of their logs if one exited non-zero."""
+    try:
+        for p in procs:
+            p.wait(timeout=CHILD_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(p.returncode, Path(log).read_text()[-3000:]) for p, log in zip(procs, logs)
+           if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"4h {what}: a process exited {bad[0][0]}:\n{bad[0][1]}")
+
+
+def _phase_4h(frames, gt, seq18, main, cfg, clock_mhz):
+    """Phase 4h, the mesh route on the card (see the module docstring).
+    Returns the kernels line's additions."""
+    import torch.distributed as dist
+
+    from monocular_visual_odometry_tpu_torch.models import state as S
+    from monocular_visual_odometry_tpu_torch.parallel import mesh as PM
+    from monocular_visual_odometry_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    work = Path(ROOT) / "build" / "4h"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    frames18, gt18 = seq18
+
+    # (a) a one-rank NCCL world: the default config over phase 4's frames
+    torch.cuda.set_device(0)
+    PM.init_distributed(f"file://{work / 'store_a'}", 1, 0, backend="nccl",
+                        timeout_s=MESH_TIMEOUT_S)
+    mesh = PM.points_mesh()
+    print(f"4h: {mesh} ({dist.get_backend()}, collective timeout {MESH_TIMEOUT_S:.0f} s)",
+          flush=True)
+    _drive(cfg, frames[:WARM_FRAMES], gt[:WARM_FRAMES], mesh=mesh)   # set-up off the clock
+    a = _drive(cfg, frames, gt, mesh=mesh)
+    _check_counts("4h (a)", cfg, a)
+    dist_main, _ = _first_parting(a["est"], main["est"], 1e-4)
+    print(f"4h (a) mesh route, one-rank NCCL world, default config: {a['frames']} frames in "
+          f"{a['wall_s']:.2f} s = {a['fps']:.2f} fps (phase 4 in this call: {main['fps']:.2f} "
+          f"fps); final stage {a['stage']}, tracking failures {a['n_fail']}, Sim3 ATE "
+          f"{a['ate']:.4f} ({100 * a['ate'] / a['length']:.2f}% of the path); matcher launches "
+          f"{a['launches']} (match_features calls {a['match_calls']}), ba_update_state_dist "
+          f"calls {a['ba_calls']} (tracking frames {a['ba_expected']}); largest pose distance "
+          f"to phase 4's run {dist_main:.3e}", flush=True)
+    if not (a["finite"] and a["stage"] == S.STAGE_TRACKING and a["n_fail"] <= 5
+            and a["ate"] < 0.03 * a["length"]):
+        raise AssertionError(f"4h (a): stage {a['stage']}, {a['n_fail']} failures, ATE "
+                             f"{100 * a['ate'] / a['length']:.2f}%")
+
+    def gate(tag, mode, got, ref):
+        d_max, _ = _first_parting(got["est"], ref["est"], 0.0)
+        d_gate, ate_gate = DIST_GATES[mode]
+        print(f"4h {tag}: largest translation distance {d_max:.3e} (gate {d_gate}), ATE "
+              f"{got['ate']:.4f} against {ref['ate']:.4f} (|d| gate {ate_gate})", flush=True)
+        if not (got["finite"] and got["stage"] == S.STAGE_TRACKING and d_max < d_gate
+                and abs(got["ate"] - ref["ate"]) < ate_gate):
+            raise AssertionError(f"4h {tag}: distance {d_max}, ATE {got['ate']} against "
+                                 f"{ref['ate']}")
+
+    # (b) tests/test_dist_pipeline.py's configuration and frames, both modes:
+    # the mesh route against the single-device route
+    for mode in DIST_GATES:
+        c = _dist_cfg(cfg, mode, small=True)
+        runs = {}
+        for route, m in (("mesh", mesh), ("single", None)):
+            runs[route] = _drive(c, frames18, gt18, mesh=m)
+            _check_counts(f"4h (b) {mode} {route}", c, runs[route])
+        gate(f"(b) {mode}, 512 keypoints, {DIST_FRAMES} frames, mesh against single",
+             mode, runs["mesh"], runs["single"])
+
+    # NCCL's timeout, in a process of its own, beside (c), which is not timed
+    # (its kernel holds the card's time slices while it runs)
+    cycles = int(NCCL_SLEEP_S * clock_mhz * 1e6)
+    t_nccl = time.time()
+    nccl_child = _spawn(["--nccl-timeout", work / "store_timeout", cycles], work / "timeout.log")
+    nccl_end = {}
+    waiter = threading.Thread(target=lambda: nccl_end.update(
+        rc=nccl_child.wait(timeout=CHILD_TIMEOUT_S), t=time.time()))
+    waiter.start()
+
+    # (c) two ranks on the one card over gloo: parallel.multihost, then the
+    # mesh route at full width (the ranks start now; the reference runs here)
+    for extra, gates in (([], (1e-3, 1e-4, 1e-3)), (["--deterministic"], (1e-9, 1e-9, 1e-8))):
+        tag = "deterministic" if extra else "default"
+        report = work / f"multihost_{tag}.json"
+        logs = [work / f"multihost_{tag}_{r}.log" for r in range(2)]
+        procs = [_popen(
+            [sys.executable, "-m", "monocular_visual_odometry_tpu_torch.parallel.multihost",
+             "--process-id", r, "--num-processes", 2, "--backend", "gloo", "--device", "cuda",
+             "--coordinator", f"file://{work / f'store_mh_{tag}'}", "--report", report,
+             "--timeout", MESH_TIMEOUT_S, *extra], log) for r, log in enumerate(logs)]
+        _wait(procs, logs, f"(c) multihost {tag}")
+        rep = json.loads(report.read_text())
+        print(f"4h (c) parallel.multihost {tag}, 2 processes on cuda:0 over gloo: "
+              f"{json.dumps(rep)}", flush=True)
+        ok = (rep["global_devices"] == 2 and rep["final_cost_rel_err"] < gates[0]
+              and rep["pose_err_vs_single_device"] < gates[1]
+              and rep["point_err_vs_single_device"] < gates[2]
+              and (extra or rep["cost_of_distributed_solution"]
+                   <= 1.001 * rep["cost_of_single_solution"]))
+        if not ok:
+            raise AssertionError(f"4h (c) multihost {tag}: outside tests/test_multihost.py's "
+                                 f"gates {gates}")
+    np.savez(work / "frames18.npz", frames=frames18, gt=gt18)
+    logs = [work / f"mesh_rank{r}.log" for r in range(2)]
+    procs = [_spawn(["--mesh-rank", r, 2, work / "store_c", work / "frames18.npz",
+                     work / f"mesh_rank{r}.npz"], log) for r, log in enumerate(logs)]
+    try:
+        ref = {mode: _drive(_dist_cfg(cfg, mode), frames18, gt18, mesh=mesh)
+               for mode in DIST_GATES}
+    finally:
+        _wait(procs, logs, "(c) mesh route, two ranks")
+    ranks = [dict(np.load(work / f"mesh_rank{r}.npz")) for r in range(2)]
+    for mode in DIST_GATES:
+        equal = np.array_equal(ranks[0][f"{mode}_est"], ranks[1][f"{mode}_est"])
+        print(f"4h (c) mesh route, two gloo ranks on cuda:0, default config, BA {mode}, "
+              f"{DIST_FRAMES} frames: poses bitwise equal across ranks on every frame: {equal}; "
+              f"matcher launches {[int(r[f'{mode}_launches']) for r in ranks]}, "
+              f"ba_update_state_dist calls {[int(r[f'{mode}_ba_calls']) for r in ranks]}",
+              flush=True)
+        if not equal:
+            raise AssertionError(f"4h (c) {mode}: the ranks' poses differ")
+        got = dict(est=ranks[0][f"{mode}_est"], stage=int(ranks[0][f"{mode}_stage"]),
+                   finite=bool(np.isfinite(ranks[0][f"{mode}_est"]).all()))
+        got["ate"] = metrics.ate_rmse(got["est"], gt18) if got["finite"] else float("inf")
+        gate(f"(c) {mode}, two ranks against (a)'s one-rank engine", mode, got, ref[mode])
+
+    # (d) the live shape at D = 1 (NCCL, here) and D = 2 (gloo, two processes),
+    # once the timeout check's process has ended
+    waiter.join(timeout=CHILD_TIMEOUT_S)
+    if nccl_child.poll() is None:
+        nccl_child.kill()
+        nccl_child.wait()
+    live = {1: _live_shape(mesh)}
+    logs = [work / f"live_rank{r}.log" for r in range(2)]
+    procs = [_spawn(["--live-rank", r, 2, work / "store_d", work / f"live_rank{r}.json"], log)
+             for r, log in enumerate(logs)]
+    _wait(procs, logs, "(d) live shape, two ranks")
+    live[2] = json.loads((work / "live_rank0.json").read_text())
+    for D, rec in live.items():
+        ev, host = rec["ms_per_solve_cuda_events"], rec["ms_per_solve_host"]
+        print(f"4h (d) live shape W={LIVE['W']} K={LIVE['K']} M={LIVE['M']}, {LIVE_ITERS} "
+              f"iterations, joint, D={D} ({rec['backend']}): ms per solve, CUDA events: dist "
+              f"{ev['dist']:.3f}, single ba_solve {ev['single']:.3f}; host clock: dist "
+              f"{host['dist']:.3f}, single {host['single']:.3f} (median of {LIVE_TURNS} turns "
+              f"of {LIVE_REPS}); matmul FLOPs per rank per solve {rec['matmul_flops_per_rank']}; "
+              f"device kernels per solve: dist {rec['kernels_per_solve']['dist']}, single "
+              f"{rec['kernels_per_solve']['single']}; device busy ms per solve: dist "
+              f"{rec['device_busy_ms_per_solve']['dist']:.3f}, single "
+              f"{rec['device_busy_ms_per_solve']['single']:.3f}; one LM iteration: "
+              f"{rec['iteration_collectives']} collectives, bytes per rank by primitive "
+              f"{rec['iteration_bytes_by_op']} = comm_model {rec['model_bytes_by_op']}, result "
+              f"bytes {rec['iteration_result_bytes']}; dist against single: pose "
+              f"{rec['pose_err']:.3e}, points {rec['point_err']:.3e}, final cost rel "
+              f"{rec['final_cost_rel']:.3e}", flush=True)
+
+    # NCCL's timeout: the watchdog flags the collective when the timeout
+    # passes and the process ends. The stream is held by a kernel the
+    # watchdog cannot abort, so the process may only end once it is free.
+    log = (work / "timeout.log").read_text()
+    enq = re.search(r"enqueued at ([0-9.]+)", log)
+    caught = re.search(r"Watchdog caught collective operation timeout.*?Timeout\(ms\)=(\d+)\) "
+                       r"ran for (\d+) milliseconds", log)
+    after = nccl_end.get("t", float("nan")) - (float(enq.group(1)) if enq else t_nccl)
+    flagged = (f"after {caught.group(2)} ms (timeout {caught.group(1)} ms)" if caught
+               else "never")
+    print(f"4h NCCL timeout ({NCCL_TIMEOUT_S:.0f} s; the stream held ~{NCCL_SLEEP_S:.0f} s by a "
+          f"kernel before the collective): the watchdog flagged the collective {flagged}; "
+          f"the process ended with code {nccl_end.get('rc')} {after:.1f} s after the collective "
+          f"was enqueued ('the collective returned' printed first: "
+          f"{'the collective returned' in log})", flush=True)
+    if (nccl_end.get("rc") in (None, 0) or enq is None or caught is None
+            or int(caught.group(1)) != int(1e3 * NCCL_TIMEOUT_S)
+            or not 1e3 * NCCL_TIMEOUT_S <= int(caught.group(2)) < 1e3 * (NCCL_TIMEOUT_S + 5)):
+        raise AssertionError(f"4h: NCCL's collective timeout did not flag the collective and "
+                             f"end the process:\n{log[-3000:]}")
+
+    dist.destroy_process_group()
+    print(f"4h: phase 4h took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"mesh_launches": a["launches"], "mesh_ba_dist_calls": a["ba_calls"],
+            "mesh_fps": a["fps"], "live_shape": {str(D): rec for D, rec in live.items()}}
 
 
 _BANNER = re.compile(r"^frame +(\d+) \[(\w+) *\] .* (KF|  ) (ok|TRACK-FAIL)$", re.M)
@@ -1094,13 +1493,13 @@ def main() -> int:
     elapsed("phase 4")
     # ---- 4. main path: the default config (BA on), then BA off, then 5pt ---
     t0 = time.perf_counter()
-    (frames, gt), *batch_seqs, robust_seq, chain_seq, planar_seq = _render_all(
+    (frames, gt), *batch_seqs, robust_seq, chain_seq, planar_seq, seq18 = _render_all(
         [("bench", 0, N_FRAMES, 0.04)]
         + [("bench", seed, BATCH_FRAMES, 0.05) for seed in range(BATCH_SEQS)]
         + [("bench", 0, ROBUST_FRAMES, 0.05), ("bench", 0, CHAIN_FRAMES, 0.05),
-           ("planar", 0, PLANAR_FRAMES, 0.0)])
+           ("planar", 0, PLANAR_FRAMES, 0.0), ("bench", 0, DIST_FRAMES, 0.05)])
     print(f"rendered {N_FRAMES} + {BATCH_SEQS} x {BATCH_FRAMES} + {ROBUST_FRAMES} + "
-          f"{CHAIN_FRAMES} + {PLANAR_FRAMES} (planar) frames in "
+          f"{CHAIN_FRAMES} + {PLANAR_FRAMES} (planar) + {DIST_FRAMES} frames in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     cfg = VOConfig()
     cfg_no_ba = cfg.replace(ba=dataclasses.replace(cfg.ba, enabled=False))
@@ -1152,17 +1551,7 @@ def main() -> int:
     # ---- 4b. where a tracking frame's time goes (profiler window) ----------
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
-    def device_kernels(prof):
-        """(name, device ms, count) per kernel name, most time first: summed
-        over the trace's device events directly (``key_averages()`` takes
-        minutes over the ~10^5 events of a profiled window)."""
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                ms, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-        return sorted(((k, ms, n) for k, (ms, n) in by_name.items() if ms > 0),
-                      key=lambda r: -r[1])
+    device_kernels = _device_kernels
 
     prof_eng = VOEngine(cfg, H, W, seed=0, device="cuda")
     for f in frames[:PROFILE_FROM]:
@@ -1351,7 +1740,7 @@ def main() -> int:
 
     elapsed("phase 4e, profile")
     # device kernels per batched step and the busy share (profiler)
-    for nb in BATCH_SIZES:
+    for nb in BATCH_PROFILED:
         sts = S.stack_states(warm[:nb])
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
@@ -1431,6 +1820,9 @@ def main() -> int:
     elapsed("phase 4g")
     paths = _phase_4g(frames, gt, robust_seq, chain_seq, planar_seq, main, cfg)
 
+    elapsed("phase 4h")
+    mesh_info = _phase_4h(frames, gt, seq18, main, cfg, clock_mhz)
+
     elapsed("phase 5")
     # ---- 5. kernels line and device line ---------------------------------
     track = shape_rows[1]
@@ -1443,6 +1835,7 @@ def main() -> int:
         "cli_launches": cli_launches,
         "cfg6_launches": paths["cfg6"]["launches"],
         "phase_4g_launches": {tag: r["launches"] for tag, r in paths.items()},
+        **mesh_info,
         "exact": True,
         "max_abs_err": max_err,
         "ms": track["ms"],
@@ -1473,4 +1866,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_child(sys.argv[1:]) if len(sys.argv) > 1 else main())

@@ -9,7 +9,10 @@ gate on ``tracking_ok`` and the keyframe decision are host branches on
 values read back from the device; each branch computes what the selected
 side of the JAX select computes. A tracking frame runs tracking, then
 (``cfg.ba.enabled`` and tracking held) ``models/ba.py::ba_update_state``,
-then the keyframe update, which sees the corrected pose.
+then the keyframe update, which sees the corrected pose. With a ``mesh``
+(``parallel.mesh.PointsMesh``) BA runs sharded over its ranks
+(``parallel/dist_ba.py``) on every tracking frame and is applied by a
+select, as in JAX's mesh route.
 
 The multi-stream mode (:func:`step_tracking_batched`,
 :func:`run_sequences_batched`) is instead JAX's form: B streams that all
@@ -35,6 +38,7 @@ from monocular_visual_odometry_tpu_torch.ops import lie, matching, pnp, twoview
 from monocular_visual_odometry_tpu_torch.ops.camera import Camera, cam2pixel, in_frame
 from monocular_visual_odometry_tpu_torch.ops.features import FrameFeatures, features_from_config
 from monocular_visual_odometry_tpu_torch.ops.ransac import split_key, uniforms
+from monocular_visual_odometry_tpu_torch.parallel import dist_ba
 from monocular_visual_odometry_tpu_torch.utils.config import VOConfig
 
 _DEG = math.pi / 180.0
@@ -82,10 +86,12 @@ def scatter_links(base: torch.Tensor, train_idx: torch.Tensor,
 
 
 def _tree_select(pred: torch.Tensor, a, b):
-    """``torch.where(pred, a, b)`` over two records of the same structure
-    (a None field stays None)."""
-    if a is None:
-        return None
+    """``torch.where(pred, a, b)`` over two records of the same structure. A
+    field that is the same object on both sides (None included) is returned
+    as it is: the single-stream state's ``rng`` lives on the CPU and must
+    stay there."""
+    if a is b:
+        return a
     if hasattr(a, "_fields"):
         return type(a)(*(_tree_select(pred, x, y) for x, y in zip(a, b)))
     return torch.where(pred, a, b)
@@ -418,9 +424,17 @@ def _keyframe_update_impl(cfg: VOConfig, cam: Camera, st: S.VOState,
 
 
 def step(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
-         *, height: int, width: int):
+         *, height: int, width: int, mesh=None):
     """One frame through the stage its state is in (the counterpart of the
-    JAX ``step_fused`` on one device). Returns (new state, StepOutput)."""
+    JAX ``step_fused``). Returns (new state, StepOutput).
+
+    ``mesh`` (a ``parallel.mesh.PointsMesh``): the windowed BA runs sharded
+    over its ranks (``parallel.dist_ba``), honouring ``cfg.ba.fix_map_points``
+    as the single-device BA does. As in JAX, it is computed on every
+    tracking frame and applied where tracking held by a select, so the
+    collectives a frame calls depend on its stage only. Every rank steps the
+    same frames from the same state: the host branches below read values
+    that are bitwise equal on every rank."""
     stage = int(st.stage)
     if stage == S.STAGE_BLANK:
         return _step_first_impl(cfg, cam, st, img)
@@ -428,7 +442,10 @@ def step(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
         return _step_init_impl(cfg, cam, st, img)
     new, out, feats, curr_mp = _step_track_impl(cfg, cam, st, img,
                                                 height=height, width=width)
-    if cfg.ba.enabled and bool(out.tracking_ok):
+    if cfg.ba.enabled and mesh is not None:
+        new = _tree_select(out.tracking_ok, dist_ba.ba_update_state_dist(cfg, cam, mesh, new),
+                           new)
+    elif cfg.ba.enabled and bool(out.tracking_ok):
         new = ba.ba_update_state(cfg, cam, new)
     if bool(out.is_keyframe):
         new = _keyframe_update_impl(cfg, cam, new, feats, curr_mp,
@@ -448,13 +465,15 @@ def _frames_on(frames, device) -> torch.Tensor:
 
 
 def run_sequence(cfg: VOConfig, cam: Camera, st: S.VOState, frames, *,
-                 height: int, width: int):
-    """:func:`step` over a [N,H,W] frame stack. Returns (final state,
-    StepOutput with a leading [N] on every field, on the state's device)."""
+                 height: int, width: int, mesh=None):
+    """:func:`step` over a [N,H,W] frame stack (``mesh``: the sharded BA, see
+    :func:`step`). Returns (final state, StepOutput with a leading [N] on
+    every field, on the state's device)."""
     frames = _frames_on(frames, st.T_w_c.device)
     outs = []
     for img in frames:
-        st, out = step(cfg, cam, st, img.to(torch.float32), height=height, width=width)
+        st, out = step(cfg, cam, st, img.to(torch.float32), height=height, width=width,
+                       mesh=mesh)
         outs.append(out)
     return st, _stack_outputs(outs)
 
@@ -566,14 +585,22 @@ def run_sequences_batched(cfg: VOConfig, cam: Camera, sts: S.VOState, frames, *,
 
 class VOEngine:
     """Host driver: threads a VOState through :func:`step`, one frame at a
-    time, and hands each frame's StepOutput back on the host."""
+    time, and hands each frame's StepOutput back on the host.
+
+    ``mesh`` (a ``parallel.mesh.PointsMesh``): the windowed BA runs sharded
+    over its ranks; every rank drives its own engine over the same frames.
+    ``cfg.orb.max_keypoints`` and ``cfg.map.max_map_points`` must divide by
+    the mesh size (ValueError)."""
 
     def __init__(self, cfg: VOConfig, height: int, width: int, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VOEngine: device 'cuda' requested but no CUDA device "
                                "is available (pass device='cpu' to run on the CPU)")
+        if mesh is not None:
+            dist_ba.check_divides(mesh, cfg.orb.max_keypoints, cfg.map.max_map_points)
+        self.mesh = mesh
         self.cfg = cfg
         self.height = height
         self.width = width
@@ -586,7 +613,7 @@ class VOEngine:
         StepOutput with every field on the CPU, read back with one wait."""
         img = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(self.device)
         self.state, out = step(self.cfg, self.cam, self.state, img,
-                               height=self.height, width=self.width)
+                               height=self.height, width=self.width, mesh=self.mesh)
         return output_to_host(out)
 
 

@@ -28,7 +28,9 @@ BA's scatter-adds are atomics on the card, so float32 sums differ from the
 CPU's in the last bits: poses agree to 1e-4, and with ``deterministic=True``
 (float64) to float32 rounding (rtol 1e-6). The five-point solver is compared
 in float64, as a solution set (see ``test_torch_fivepoint.py``). A state
-checkpoint saved on the card resumes there.
+checkpoint saved on the card resumes there. The sharded BA
+(``parallel/dist_ba.py``) runs in a one-rank NCCL world against ``ba_solve``
+on the card, and once on the mesh route without a host sync.
 """
 
 import dataclasses
@@ -475,3 +477,67 @@ def test_add_frame_reads_the_output_back_with_one_wait(card):
         for name, g, w in zip(got._fields, got, want):
             assert g.device.type == "cpu" and g.dtype == w.dtype and torch.equal(g, w), name
     assert int(out.stage) == TS.STAGE_TRACKING
+
+
+@pytest.fixture
+def nccl_mesh(card, tmp_path):
+    """A one-rank NCCL world over a file store, and its ``points`` mesh."""
+    import torch.distributed as dist
+
+    from monocular_visual_odometry_tpu_torch.parallel import mesh as PM
+
+    PM.init_distributed(f"file://{tmp_path / 'store'}", 1, 0, backend="nccl", timeout_s=120.0)
+    try:
+        yield PM.points_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deterministic", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("mode", ["pose_only", "joint", "regate"])
+def test_dist_ba_solve_one_rank_on_card_equals_ba_solve(nccl_mesh, mode, deterministic):
+    """The sharded LM in a one-rank NCCL world against ``ba_solve``, both on
+    the card: poses and points within 1e-4 in float32, rtol 1e-6 in float64
+    (ROADMAP §3 item 9: the scatter-adds are atomics on the card)."""
+    from monocular_visual_odometry_tpu_torch.parallel import dist_ba
+
+    prob_kw, ba_kw = BA_MODES[mode]
+    prob = _on(_ba_problem(**prob_kw), "cuda")
+    cfg = VOConfig()
+    cfg = cfg.replace(ba=dataclasses.replace(cfg.ba, deterministic=deterministic, **ba_kw))
+    want = [t.cpu() for t in TB.ba_solve(cfg, CAM, prob)]
+    got = [t.cpu() for t in dist_ba.dist_ba_solve(cfg, CAM, nccl_mesh, prob)]
+    if deterministic:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+    else:
+        torch.testing.assert_close(got[0][:, :3, 3], want[0][:, :3, 3], rtol=0, atol=1e-4)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fix_map_points", [True, False], ids=["fixed", "joint"])
+def test_mesh_route_ba_never_waits_on_the_host(nccl_mesh, fix_map_points):
+    """One ``ba_update_state_dist`` in a one-rank NCCL world under
+    ``set_sync_debug_mode("error")``: neither the LM nor its collectives read
+    a value back (the first call, which sets up the communicator, runs
+    before); the state equals ``ba_update_state``'s to 1e-4."""
+    from monocular_visual_odometry_tpu_torch.parallel import dist_ba
+
+    cfg = VOConfig()
+    cfg = cfg.replace(ba=dataclasses.replace(cfg.ba, fix_map_points=fix_map_points))
+    st = TS.state_to(_linked_state(cfg), "cuda")
+    want = TB.ba_update_state(cfg, CAM, st)
+    dist_ba.ba_update_state_dist(cfg, CAM, nccl_mesh, st)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = dist_ba.ba_update_state_dist(cfg, CAM, nccl_mesh, st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for f in ("T_w_c", "ref_pose", "last_keyframe_pose"):
+        torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f).cpu(), rtol=0,
+                                   atol=1e-4)
+    torch.testing.assert_close(got.ring.poses.cpu(), want.ring.poses.cpu(), rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.map.pts.cpu(), want.map.pts.cpu(), rtol=0, atol=1e-4)
