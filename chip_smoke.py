@@ -120,6 +120,21 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    collective enqueued behind a kernel that holds the stream longer than the
    timeout is flagged by the watchdog when the timeout passes, and the
    process ends with a non-zero code;
+   4i. the general step (``run_sequences_general``: B streams in any stage in
+   one vmapped step, JAX's ``profile_throughput.py`` "general" protocol)
+   over 4e's eight 60-frame sequences from fresh states keyed 0..B-1, so
+   every stream goes through init, at B = 1 and 8: aggregate fps beside 4e's
+   tracking-only B=8 rate and the single-stream rate of the call; 3 matcher
+   launches (init, tracking, keyframe update) and 1 ``ba_update_state``
+   call per step whatever B; every stream tracking (<= 5 failures), its
+   first step its single-stream step, the whole B=1 run the single-stream
+   run (4e's run of the same stream from frame 0), the ATE rule of 4e;
+   device kernels and busy share over 2 profiled steps (B=8 at most 1.5x
+   B=1); one mixed-stage B=5 step (blank, a failing and a succeeding init
+   attempt, tracking, tracking on a blank frame) whose body runs under
+   ``set_sync_debug_mode("error")``, equal to ``step`` per stream (decisions,
+   next keys, poses within 1e-3) and to the same step on a CPU copy fed the
+   same draws (4e's budgets);
 5. prints one JSON line describing the kernels, then, as the last line, the
    device JSON.
 
@@ -182,6 +197,10 @@ CLI_CHECKPOINT_EVERY, CLI_RESUME_FROM = 50, 100  # phase 4f: resume from state_0
 CLI_CONFIG_FRAMES = 30   # phase 4f: frames of the --config run
 POSE_TOL = 1e-4          # phase 4f: CLI and resumed poses against the in-process runs
 KERNELS_PER_STEP_RATIO = 1.5  # B=8 device kernels per batched step, at most x B=1's
+# phase 4i: the general step (JAX's profile_throughput.py "general"), over 4e's
+# eight sequences from fresh states keyed 0..B-1
+GENERAL_SIZES = (1, 8)
+GENERAL_PROFILE_STEPS = 2
 RENDER_CHUNK = 30        # frames per rendering job
 READBACK_FROM, READBACK_FRAMES = 40, 20  # phase 4: add_frame's readback, tracking frames
 # phase 4g, the paths the scene generators and camera tools open; each at the
@@ -1259,6 +1278,251 @@ is_enable_ba: "true"
 
 
 
+def _batch_invariance(cfg, cam, st_init, img_init, st_track, img_track):
+    """Each stage of the batched bodies vmapped over B = 2, 4, 8 copies of
+    the same inputs against B=1 (largest difference over the copies:
+    floats absolute, integers and flags the count of differing entries):
+    the frontend must not move at all (its pyramid is taps, not a GEMM)."""
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from monocular_visual_odometry_tpu_torch.models import ba as BA
+    from monocular_visual_odometry_tpu_torch.models import vo as V
+    from monocular_visual_odometry_tpu_torch.ops.features import features_from_config
+
+    def diff(a, b):
+        out = 0.0
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            if x is None:
+                continue
+            if x.dtype.is_floating_point:
+                out = max(out, float((x - y).abs().nan_to_num(0).max()))
+            else:
+                out = max(out, float((x != y).sum()))
+        return out
+
+    each = lambda fn, t: tree_map(lambda x: None if x is None else fn(x), t)
+    one = lambda t: each(lambda x: x[None], t)
+    feats_t = features_from_config(img_track, cfg.orb)
+    feats_i = features_from_config(img_init, cfg.orb)
+    d_t = V.draw_batched(cfg, st_track.rng[None], "cuda")
+    d_i = V.draw_general(cfg, st_init.rng[None], "cuda")
+    nr = lambda s_: s_._replace(rng=None)
+    track = lambda s_, im, u, f: tuple(tree_leaves(V.step_track(
+        cfg, cam, s_, im, height=H, width=W, u=u, feats=f)[1]))
+    init = lambda s_, im, ue, uh, f: tuple(tree_leaves(V.step_init(
+        cfg, cam, s_, im, u_e=ue, u_h=uh, feats=f)[1]))
+    stages = {
+        "features": (lambda im: tuple(features_from_config(im, cfg.orb)), (img_track[None],)),
+        "tracking": (track, (one(nr(st_track)), img_track[None], d_t.pnp, one(feats_t))),
+        "BA": (lambda s_: tuple(tree_leaves(BA.ba_update_state(cfg, cam, s_).T_w_c)),
+               (one(nr(st_track)),)),
+        "init": (init, (one(nr(st_init)), img_init[None], d_i.init_e, d_i.init_h, one(feats_i))),
+    }
+    found = {}
+    for name, (fn, args) in stages.items():
+        dims = tuple(V._vmap_dims(a) for a in args)
+        base = torch.func.vmap(fn, in_dims=dims)(*args)
+        found[name] = []
+        for nb in (2, 4, 8):
+            many = torch.func.vmap(fn, in_dims=dims)(*each(
+                lambda x: x.expand((nb,) + x.shape[1:]).contiguous(), args))
+            found[name].append(max(diff(each(lambda x: x[b:b + 1], many), base)
+                                   for b in range(nb)))
+    print("4i batch invariance, largest difference of a copy at B = 2, 4, 8 from B=1: "
+          + "; ".join(f"{k} {v}" for k, v in found.items()), flush=True)
+    if any(found["features"]):
+        raise AssertionError("4i: the frontend's output depends on the batch size")
+
+
+def _phase_4i(cfg, batch_seqs, single, rates):
+    """Phase 4i, JAX's ``profile_throughput.py`` "general" protocol: B streams
+    in any stage in one vmapped step (``run_sequences_general``) over 4e's
+    sequences from fresh states keyed 0..B-1, so every stream goes through
+    init; ``single`` holds 4e's single-stream runs of the same streams (its
+    warm-up frames and its reference, 60 frames from the same fresh states).
+    Returns per B the run's record."""
+    from monocular_visual_odometry_tpu_torch.models import ba as BA
+    from monocular_visual_odometry_tpu_torch.models import state as S
+    from monocular_visual_odometry_tpu_torch.models import vo as V
+    from monocular_visual_odometry_tpu_torch.ops import lie
+    from monocular_visual_odometry_tpu_torch.ops.cuda import hamming as HM
+    from monocular_visual_odometry_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    n = BATCH_FRAMES
+    cam = V.VOEngine(cfg, H, W, device="cuda").cam
+    frames = torch.from_numpy(np.stack([seq for seq, _ in batch_seqs])).cuda()
+    fresh = lambda nb: S.stack_states([S.init_state(cfg, b, "cuda") for b in range(nb)])
+    ref = []
+    for r, (_, gt) in zip(single, batch_seqs):
+        est = np.stack([o.T_w_c.numpy() for o in r["outs"]])
+        ref.append(dict(est=est, is_kf=np.array([bool(o.is_keyframe) for o in r["outs"]]),
+                        ok=np.array([bool(o.tracking_ok) for o in r["outs"]]),
+                        stage=np.array([int(o.stage) for o in r["outs"]]),
+                        ate=metrics.ate_rmse(est, gt)))
+    worst_single_ate = max(r["ate"] for r in ref)
+    # one throw-away step: one-time set-up (batched solvers) off the clock
+    V.run_sequences_general(cfg, cam, fresh(GENERAL_SIZES[-1]), frames[:, :1], height=H,
+                            width=W)
+    runs = {}
+    for nb in GENERAL_SIZES:
+        sts = fresh(nb)
+        torch.cuda.synchronize()
+        HM.hamming_nn_top2.launches = 0
+        BA.ba_update_state.calls = 0
+        t0 = time.perf_counter()
+        final, outs = V.run_sequences_general(cfg, cam, sts, frames[:nb], height=H, width=W)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, ba_calls = HM.hamming_nn_top2.launches, BA.ba_update_state.calls
+        poses = outs.T_w_c.cpu().numpy()
+        ok, is_kf = outs.tracking_ok.cpu().numpy(), outs.is_keyframe.cpu().numpy()
+        stage = outs.stage.cpu().numpy()
+        dist = [np.linalg.norm(poses[:, b, :3, 3] - ref[b]["est"][:, :3, 3], axis=-1)
+                for b in range(nb)]
+        kf_split = [int(np.argmax(is_kf[:, b] != ref[b]["is_kf"]))
+                    if (is_kf[:, b] != ref[b]["is_kf"]).any() else None for b in range(nb)]
+        init = [int(np.argmax(stage[:, b] == S.STAGE_TRACKING)) for b in range(nb)]
+        r = dict(wall_s=wall, fps=nb * n / wall, ms_per_step=1e3 * wall / n, launches=launches,
+                 ba_calls=ba_calls, n_fail=(~ok).sum(0).tolist(),
+                 stage=final.stage.cpu().tolist(), init=init,
+                 ate=[metrics.ate_rmse(poses[:, b], batch_seqs[b][1]) for b in range(nb)])
+        runs[nb] = r
+        print(f"4i general B={nb}: {n} steps in {wall:.2f} s = {r['fps']:.2f} fps aggregate "
+              f"({r['ms_per_step']:.1f} ms per step; in this call 4e's tracking-only B="
+              f"{BATCH_SIZES[-1]} {rates['tracking']:.2f} fps, single-stream one after "
+              f"another {rates['single']:.2f} fps); matcher launches {launches}, "
+              f"ba_update_state calls {ba_calls}; init frame {init} (single-stream "
+              f"{[int(np.argmax(q['stage'] == S.STAGE_TRACKING)) for q in ref[:nb]]}); "
+              f"tracking failures {r['n_fail']}, final stages {r['stage']}, ATE "
+              f"{[round(a, 4) for a in r['ate']]} (single-stream "
+              f"{[round(q['ate'], 4) for q in ref[:nb]]}); first step whose keyframe decision "
+              f"differs {kf_split}, largest pose distance "
+              f"{[float(f'{d.max():.3g}') for d in dist]}", flush=True)
+        if launches != 3 * n:
+            raise AssertionError(f"4i B={nb}: {launches} matcher launches, expected {3 * n} "
+                                 f"(init, tracking and keyframe update, per step)")
+        if ba_calls != n:
+            raise AssertionError(f"4i B={nb}: {ba_calls} ba_update_state calls, expected {n}")
+        for b in range(nb):
+            if r["stage"][b] != S.STAGE_TRACKING or r["n_fail"][b] > 5:
+                raise AssertionError(f"4i B={nb}: stream {b} stage {r['stage'][b]}, "
+                                     f"{r['n_fail'][b]} tracking failures (budget 5)")
+            if not (dist[b][0] < 1e-3 and is_kf[0, b] == ref[b]["is_kf"][0]
+                    and ok[0, b] == ref[b]["ok"][0]):
+                raise AssertionError(f"4i B={nb}: stream {b}'s first step is not its "
+                                     f"single-stream step (pose distance {dist[b][0]:.3g})")
+            if nb == 1 and (kf_split[b] is not None or not dist[b].max() < 1e-3):
+                raise AssertionError(f"4i B=1: the run parts from the single-stream run "
+                                     f"(keyframe decisions from step {kf_split[b]}, pose "
+                                     f"distance up to {dist[b].max():.3g})")
+            # at B > 1 rounding can flip a gate and the keys part (see 4e)
+            q = ref[b]["ate"]
+            if not (abs(r["ate"][b] - q) <= max(0.02, 0.5 * q) or r["ate"][b] <= worst_single_ate):
+                raise AssertionError(f"4i B={nb}: stream {b} ATE {r['ate'][b]:.4f} is neither "
+                                     f"within max(0.02, half) of its single-stream ATE {q:.4f} "
+                                     f"nor below the worst single-stream ATE "
+                                     f"{worst_single_ate:.4f}")
+
+    # device kernels per general step and the busy share (profiler, device
+    # activity only: the host ops' events of ~18,000 kernels a step take
+    # minutes to list; from fresh states: every branch runs for every
+    # stream whatever its stage)
+    print(f"4i: runs done at {time.perf_counter() - t_phase:.1f} s", flush=True)
+    for nb in GENERAL_SIZES:
+        sts = fresh(nb)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(GENERAL_PROFILE_STEPS):
+                sts, _ = V.step_general_batched(cfg, cam, sts, frames[:nb, i], height=H, width=W)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        ks = _device_kernels(prof)
+        busy = sum(ms for _, ms, _ in ks)
+        n_k = sum(c for _, _, c in ks)
+        runs[nb].update(kernels_per_step=n_k / GENERAL_PROFILE_STEPS,
+                        busy_ms_per_step=busy / GENERAL_PROFILE_STEPS, busy_share=busy / wall_ms)
+        print(f"4i profile B={nb}: {GENERAL_PROFILE_STEPS} general steps, wall {wall_ms:.1f} ms "
+              f"under the profiler, device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%), "
+              f"{n_k / GENERAL_PROFILE_STEPS:.0f} device kernels per step", flush=True)
+        for name, ms, count in ks[:4]:
+            print(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}", flush=True)
+    ratio = runs[GENERAL_SIZES[-1]]["kernels_per_step"] / runs[1]["kernels_per_step"]
+    print(f"4i: device kernels per general step, B={GENERAL_SIZES[-1]} against B=1: "
+          f"{ratio:.3f}x (limit {KERNELS_PER_STEP_RATIO}x)", flush=True)
+    if ratio > KERNELS_PER_STEP_RATIO:
+        raise AssertionError(f"4i: B={GENERAL_SIZES[-1]} issues {ratio:.2f}x the kernels of "
+                             f"B=1 per general step: a per-stream loop in the step?")
+    print(f"4i: profiles done at {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # one mixed-stage step: blank, an init attempt that fails and one that
+    # succeeds, tracking, and tracking on a blank frame (fails)
+    seq = frames[1].float()
+    init = int(np.argmax(ref[1]["stage"] == S.STAGE_TRACKING))
+    if init < 2:
+        raise AssertionError(f"4i: stream 1 initialized at frame {init}: no failing attempt")
+    st, states = S.init_state(cfg, 1, "cuda"), []
+    for i in range(init + 2):
+        states.append(st)
+        st, _ = V.step(cfg, cam, st, seq[i], height=H, width=W)
+    _batch_invariance(cfg, cam, states[1], seq[init], st, seq[init + 2])
+    print(f"4i: batch invariance done at {time.perf_counter() - t_phase:.1f} s", flush=True)
+    picked = [S.init_state(cfg, 0, "cuda"), states[1], states[init], st, st]
+    imgs = torch.stack([frames[0, 0].float(), seq[1], seq[init], seq[init + 2],
+                        torch.zeros_like(seq[0])])
+    sts = S.stack_states(picked)
+    draws = V.draw_general(cfg, sts.rng, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any wait on the stream raises
+    try:
+        V.general_batched_body(cfg, cam, sts, imgs, draws, height=H, width=W)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    new, got = V.step_general_batched(cfg, cam, sts, imgs, height=H, width=W, draws=draws)
+    t_cpu = time.perf_counter()
+    _, want = V.step_general_batched(
+        cfg, cam, S.state_to(sts, "cpu"), imgs.cpu(), height=H, width=W,
+        draws=V.BatchedDraws(*(None if d is None else d.cpu() for d in draws)))
+    t_cpu = time.perf_counter() - t_cpu
+    got = S.StepOutput(*(t.cpu() for t in got))
+    per_stream = [V.step(cfg, cam, s_, img, height=H, width=W) for s_, img in zip(picked, imgs)]
+    exact = ("stage", "n_keypoints", "n_candidates", "is_keyframe", "tracking_ok",
+             "ba_rejected_total")
+    close = ("n_matches", "n_inliers", "n_map_points")
+    d_cpu = [float(lie.pose_distance(got.T_w_c[b], want.T_w_c[b])) for b in range(5)]
+    d_step = [float(lie.pose_distance(got.T_w_c[b], o.T_w_c.cpu()))
+              for b, (_, o) in enumerate(per_stream)]
+    print(f"4i: one mixed-stage B=5 step (blank, init failing at frame 1, init at frame {init}, "
+          f"tracking, tracking on a blank frame): its body ran under set_sync_debug_mode('error') "
+          f"without a sync; card/CPU "
+          + ", ".join(f"{f} {getattr(got, f).tolist()}/{getattr(want, f).tolist()}"
+                      for f in exact + close)
+          + f"; pose distance to the CPU {[float(f'{d:.3g}') for d in d_cpu]}, to step per "
+          f"stream {[float(f'{d:.3g}') for d in d_step]}; the CPU copy's step took "
+          f"{t_cpu:.1f} s", flush=True)
+    for f in exact:
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"4i: card and CPU differ in {f}")
+    for f in close:
+        g, w_ = getattr(got, f), getattr(want, f)
+        if not ((g - w_).abs() <= 0.05 * w_).all():
+            raise AssertionError(f"4i: card and CPU {f} differ by more than 5%")
+    if got.tracking_ok.tolist() != [True] * 4 + [False] or got.stage.tolist() != [1, 1, 2, 2, 2]:
+        raise AssertionError("4i: the mixed step's streams are not in the intended stages")
+    for b, (s_, o) in enumerate(per_stream):
+        for f in ("stage", "is_keyframe", "tracking_ok"):
+            if int(getattr(got, f)[b]) != int(getattr(o, f)):
+                raise AssertionError(f"4i: stream {b}'s {f} is not its step's")
+        if int(new.rng[b]) != int(s_.rng):
+            raise AssertionError(f"4i: stream {b}'s next key is not its step's")
+    if not max(d_cpu + d_step) < 1e-3:
+        raise AssertionError(f"4i: poses differ by {max(d_cpu + d_step)}")
+    print(f"4i: phase 4i took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1627,13 +1891,12 @@ def main() -> int:
     elapsed("phase 4e")
     # ---- 4e. the batched steady state: B streams, one vmapped step ---------
     n_steps = BATCH_FRAMES - BATCH_WARM
-    engines = []
+    engines, warm_outs = [], []
     t0 = time.perf_counter()
     for seed, (seq, _) in enumerate(batch_seqs):
         eng = VOEngine(cfg, H, W, seed=seed, device="cuda")
-        for f in seq[:BATCH_WARM]:
-            out = eng.add_frame(f)
-        if int(out.stage) != S.STAGE_TRACKING:
+        warm_outs.append([eng.add_frame(f) for f in seq[:BATCH_WARM]])
+        if int(warm_outs[-1][-1].stage) != S.STAGE_TRACKING:
             raise AssertionError(f"4e: stream {seed} is not tracking after {BATCH_WARM} frames")
         engines.append(eng)
     warm = [eng.state for eng in engines]
@@ -1651,7 +1914,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         est = np.stack([o.T_w_c.numpy() for o in outs])
-        single.append(dict(wall_s=wall, fps=n_steps / wall, est=est,
+        single.append(dict(wall_s=wall, fps=n_steps / wall, est=est, outs=warm_outs[seed] + outs,
                            is_kf=np.array([bool(o.is_keyframe) for o in outs]),
                            ok=np.array([bool(o.tracking_ok) for o in outs]),
                            n_fail=sum(not bool(o.tracking_ok) for o in outs),
@@ -1823,6 +2086,10 @@ def main() -> int:
     elapsed("phase 4h")
     mesh_info = _phase_4h(frames, gt, seq18, main, cfg, clock_mhz)
 
+    elapsed("phase 4i")
+    general = _phase_4i(cfg, batch_seqs, single, dict(
+        single=single_fps_seq, tracking=batched[BATCH_SIZES[-1]]["fps"]))
+
     elapsed("phase 5")
     # ---- 5. kernels line and device line ---------------------------------
     track = shape_rows[1]
@@ -1855,6 +2122,9 @@ def main() -> int:
         "batched_launches": {str(nb): r["launches"] for nb, r in batched.items()},
         "batched_steps": n_steps,
         "batched_fps": {str(nb): r["fps"] for nb, r in batched.items()},
+        "general_launches": {str(nb): r["launches"] for nb, r in general.items()},
+        "general_steps": BATCH_FRAMES,
+        "general_fps": {str(nb): r["fps"] for nb, r in general.items()},
         "single_stream_fps_sum": single_fps_sum,
         "card": card,
     }]

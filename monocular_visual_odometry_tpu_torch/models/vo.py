@@ -4,23 +4,29 @@ host-side engine.
 Port of ``monocular_visual_odometry_tpu.models.vo``. The JAX package runs
 the whole frame as one jitted call and selects between branches with
 masked selects (``lax.switch`` / ``lax.cond`` / ``_tree_select``). PyTorch
-runs eagerly, so here the stage dispatch, the init quality gate, the BA
-gate on ``tracking_ok`` and the keyframe decision are host branches on
+runs eagerly, so in the single-stream :func:`step` the stage dispatch, the
+BA gate on ``tracking_ok`` and the keyframe decision are host branches on
 values read back from the device; each branch computes what the selected
-side of the JAX select computes. A tracking frame runs tracking, then
+side of the JAX select computes. The stages themselves are the public
+entry points :func:`step_first`, :func:`step_init` (branch-free, as in
+JAX: the init gate applies its result by a select), :func:`step_track` and
+:func:`keyframe_update`. A tracking frame runs tracking, then
 (``cfg.ba.enabled`` and tracking held) ``models/ba.py::ba_update_state``,
 then the keyframe update, which sees the corrected pose. With a ``mesh``
 (``parallel.mesh.PointsMesh``) BA runs sharded over its ranks
 (``parallel/dist_ba.py``) on every tracking frame and is applied by a
 select, as in JAX's mesh route.
 
-The multi-stream mode (:func:`step_tracking_batched`,
-:func:`run_sequences_batched`) is instead JAX's form: B streams that all
-track advance by one frame in one ``torch.func.vmap`` of a per-stream body
-in which BA and the keyframe update run unconditionally and are applied by
-per-stream selects (:func:`_tree_select`). Its random draws are made on the
-host from each stream's key before the body, and one readback after it
-picks each stream's next key.
+The multi-stream modes are instead JAX's form: B streams advance by one
+frame in one ``torch.func.vmap`` of a per-stream body with no host branch.
+:func:`step_tracking_batched` takes streams that all track: BA and the
+keyframe update run unconditionally and are applied by per-stream selects
+(:func:`_tree_select`). :func:`step_general_batched` takes streams in any
+stage (JAX's ``vmap(run_sequence)``): the first-frame, init and tracking
+branches all run for every stream and its stage selects, as ``lax.switch``
+does under vmap. Their random draws are made on the host from each
+stream's key before the body, and one readback after it picks each
+stream's next key.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from torch.utils._pytree import tree_map
 
 from monocular_visual_odometry_tpu_torch.models import ba
 from monocular_visual_odometry_tpu_torch.models import state as S
-from monocular_visual_odometry_tpu_torch.ops import lie, matching, pnp, twoview
+from monocular_visual_odometry_tpu_torch.ops import fivepoint, lie, matching, pnp, twoview
 from monocular_visual_odometry_tpu_torch.ops.camera import Camera, cam2pixel, in_frame
 from monocular_visual_odometry_tpu_torch.ops.features import FrameFeatures, features_from_config
 from monocular_visual_odometry_tpu_torch.ops.ransac import split_key, uniforms
@@ -102,7 +108,12 @@ def _eye4(device) -> torch.Tensor:
 
 
 def _i32(v, device) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.int32, device=device)
+    # a fill, not a copy from host memory (which waits on the card's stream)
+    return torch.full((), v, dtype=torch.int32, device=device)
+
+
+def _flag(v: bool, device) -> torch.Tensor:
+    return torch.full((), v, dtype=torch.bool, device=device)
 
 
 def _next_key(st: S.VOState):
@@ -137,9 +148,13 @@ def _match(cfg: VOConfig, desc1, desc2, valid1, valid2, kpts1, kpts2, radius,
 # ---------------------------------------------------------------------------
 
 
-def _step_first_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor):
+def step_first(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor, *,
+               feats: Optional[FrameFeatures] = None):
+    """First frame: detect, T = I, become the reference keyframe. ``feats``:
+    the frame's features, when the caller has them. Returns (new state,
+    StepOutput)."""
     dev = img.device
-    feats = features_from_config(img, cfg.orb)
+    feats = features_from_config(img, cfg.orb) if feats is None else feats
     k = cfg.orb.max_keypoints
     eye = _eye4(dev)
     no_links = torch.full((k,), -1, dtype=torch.int32, device=dev)
@@ -152,12 +167,11 @@ def _step_first_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tenso
         ref_frame_idx=st.frame_idx, last_keyframe_pose=eye, ring=ring,
     )
     new = S.push_keyframe(new, eye)
-    true = torch.tensor(True, device=dev)
     out = S.StepOutput(
         T_w_c=eye, stage=new.stage, n_keypoints=feats.n_valid,
         n_matches=_i32(0, dev), n_inliers=_i32(0, dev),
-        is_keyframe=true, tracking_ok=true,
-        used_homography=torch.tensor(False, device=dev), n_map_points=new.map.n_valid,
+        is_keyframe=_flag(True, dev), tracking_ok=_flag(True, dev),
+        used_homography=_flag(False, dev), n_map_points=new.map.n_valid,
         kpts=feats.kpts, kpt_valid=feats.valid,
         kpt_inlier=torch.zeros(k, dtype=torch.bool, device=dev),
         ba_rejected_total=st.ba_rejected, n_candidates=_i32(0, dev),
@@ -170,9 +184,19 @@ def _step_first_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tenso
 # ---------------------------------------------------------------------------
 
 
-def _step_init_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor):
+def step_init(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor, *,
+              u_e: Optional[torch.Tensor] = None, u_h: Optional[torch.Tensor] = None,
+              G_e: Optional[torch.Tensor] = None, feats: Optional[FrameFeatures] = None):
+    """Two-view initialization attempt against the reference frame: match,
+    E/H estimation and selection, the triangulation-angle filter, the
+    quality gate and depth normalization. Branch-free, as in JAX: the
+    succeeded and the unchanged state are both built (the map insert masked
+    by the gate) and the gate selects between them. ``u_e`` / ``u_h`` / ``G_e``
+    are the RANSAC draws when the caller made them (the batched step; see
+    ``twoview.estimate_relative_pose``), ``feats`` the frame's features.
+    Returns (new state, StepOutput)."""
     dev = img.device
-    feats = features_from_config(img, cfg.orb)
+    feats = features_from_config(img, cfg.orb) if feats is None else feats
     rng, k_est = _next_key(st)
     ref = st.ref_feats
 
@@ -187,6 +211,7 @@ def _step_init_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor
         n_hypotheses=cfg.ransac.n_hypotheses,
         use_reference_selection=cfg.init.use_reference_selection,
         essential_minimal=cfg.ransac.essential_minimal,
+        u_e=u_e, u_h=u_h, G_e=G_e,
     )
     T_2_1 = lie.rt_to_T(tv.R, tv.t)
     angles = twoview.triangulation_angles(tv.pts3d_c1, T_2_1)
@@ -196,49 +221,42 @@ def _step_init_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor
     mean_disp = matching.mean_pixel_displacement(ref.kpts, feats.kpts,
                                                  m._replace(valid=good))
     med_angle = _masked_median(angles, good)
-    is_good = bool(
-        (n_good >= cfg.init.min_inlier_matches)
-        & (mean_disp > cfg.init.min_pixel_dist)
-        & (med_angle > cfg.init.min_median_triang_angle_deg * _DEG))
+    is_good = ((n_good >= cfg.init.min_inlier_matches)
+               & (mean_disp > cfg.init.min_pixel_dist)
+               & (med_angle > cfg.init.min_median_triang_angle_deg * _DEG))
 
+    # depth normalization: mean depth in the current frame -> assumed
+    pts_c2 = lie.transform_points(T_2_1, tv.pts3d_c1)
+    mean_depth = (torch.sum(torch.where(good, pts_c2[:, 2], torch.zeros_like(angles)))
+                  / torch.clamp(n_good, min=1))
+    scale = cfg.init.assumed_mean_depth / torch.clamp(mean_depth, min=1e-6)
+    T_w_c2 = st.ref_pose @ lie.inv_T(lie.rt_to_T(tv.R, tv.t * scale))
+    pts_w = lie.transform_points(st.ref_pose, tv.pts3d_c1 * scale)
+    # masked by the gate, so a failed attempt inserts nothing
+    insert = good & is_good
+    new_map, slots = S.insert_map_points(
+        st.map, pts_w, feats.desc[m.train_idx],
+        _unit_normals(pts_w, T_w_c2[:3, 3]), insert, frame_idx=st.frame_idx,
+        gray=feats.gray[m.train_idx])
     k = cfg.orb.max_keypoints
-    no_links = torch.full((k,), -1, dtype=torch.int32, device=dev)
-    if is_good:
-        # depth normalization: mean depth in the current frame -> assumed
-        pts_c2 = lie.transform_points(T_2_1, tv.pts3d_c1)
-        mean_depth = (torch.sum(torch.where(good, pts_c2[:, 2], torch.zeros_like(angles)))
-                      / torch.clamp(n_good, min=1))
-        scale = cfg.init.assumed_mean_depth / torch.clamp(mean_depth, min=1e-6)
-        T_w_c2 = st.ref_pose @ lie.inv_T(lie.rt_to_T(tv.R, tv.t * scale))
-        pts_w = lie.transform_points(st.ref_pose, tv.pts3d_c1 * scale)
-        new_map, slots = S.insert_map_points(
-            st.map, pts_w, feats.desc[m.train_idx],
-            _unit_normals(pts_w, T_w_c2[:3, 3]), good, frame_idx=st.frame_idx,
-            gray=feats.gray[m.train_idx])
-        curr_mp = scatter_links(no_links, m.train_idx,
-                                torch.where(good, slots, torch.full_like(slots, -1)))
-        pose_out = T_w_c2
-        new = st._replace(
-            stage=_i32(S.STAGE_TRACKING, dev), T_w_c=T_w_c2, ref_feats=feats,
-            ref_pose=T_w_c2, ref_mp_idx=curr_mp, ref_frame_idx=st.frame_idx,
-            last_keyframe_pose=T_w_c2, map=new_map)
-        new = S.push_keyframe(new, T_w_c2)
-        kpt_inlier = scatter_links(torch.zeros(k, dtype=torch.bool, device=dev),
-                                   m.train_idx, good)
-    else:
-        curr_mp = no_links
-        pose_out = st.ref_pose
-        new = st._replace(T_w_c=st.ref_pose)
-        kpt_inlier = torch.zeros(k, dtype=torch.bool, device=dev)
-
+    curr_mp = scatter_links(torch.full((k,), -1, dtype=torch.int32, device=dev), m.train_idx,
+                            torch.where(insert, slots, torch.full_like(slots, -1)))
+    pose_out = torch.where(is_good, T_w_c2, st.ref_pose)
     ring = st.ring.push(st.frame_idx % cfg.map.frame_buffer, pose_out,
                         feats.kpts, curr_mp, is_kf=is_good)
+
+    succeeded = S.push_keyframe(st._replace(
+        stage=_i32(S.STAGE_TRACKING, dev), T_w_c=T_w_c2, ref_feats=feats,
+        ref_pose=T_w_c2, ref_mp_idx=curr_mp, ref_frame_idx=st.frame_idx,
+        last_keyframe_pose=T_w_c2, map=new_map), T_w_c2)
+    new = _tree_select(is_good, succeeded, st._replace(T_w_c=st.ref_pose))
     new = new._replace(frame_idx=st.frame_idx + 1, ring=ring, rng=rng)
+    kpt_inlier = scatter_links(torch.zeros(k, dtype=torch.bool, device=dev), m.train_idx,
+                               insert)
     out = S.StepOutput(
         T_w_c=pose_out, stage=new.stage, n_keypoints=feats.n_valid,
         n_matches=m.n_valid, n_inliers=n_good.to(torch.int32),
-        is_keyframe=torch.tensor(is_good, device=dev),
-        tracking_ok=torch.tensor(True, device=dev),
+        is_keyframe=is_good, tracking_ok=_flag(True, dev),
         used_homography=tv.used_homography, n_map_points=new.map.n_valid,
         kpts=feats.kpts, kpt_valid=feats.valid, kpt_inlier=kpt_inlier,
         ba_rejected_total=st.ba_rejected, n_candidates=_i32(0, dev),
@@ -251,12 +269,15 @@ def _step_init_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def _step_track_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
-                     *, height: int, width: int, u: Optional[torch.Tensor] = None):
-    """Tracking; ``u`` are the PnP draw's uniforms when the caller made
-    them (the batched step)."""
+def step_track(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
+               *, height: int, width: int, u: Optional[torch.Tensor] = None,
+               feats: Optional[FrameFeatures] = None):
+    """Tracking: frustum scan, 3D-2D matching, RANSAC-PnP, pose-jump
+    rejection and the keyframe-need flag. ``u`` are the PnP draw's uniforms
+    when the caller made them (the batched steps), ``feats`` the frame's
+    features. Returns (new state, StepOutput, features, keypoint links)."""
     dev = img.device
-    feats = features_from_config(img, cfg.orb)
+    feats = features_from_config(img, cfg.orb) if feats is None else feats
     rng, k_pnp = _next_key(st)
 
     # frustum scan with the constant-velocity prediction; with the union
@@ -335,7 +356,7 @@ def _step_track_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tenso
         T_w_c=pose, stage=new.stage, n_keypoints=feats.n_valid,
         n_matches=m.n_valid, n_inliers=res.n_inliers.to(torch.int32),
         is_keyframe=need_kf, tracking_ok=ok,
-        used_homography=torch.zeros((), dtype=torch.bool, device=dev),
+        used_homography=_flag(False, dev),
         n_map_points=new_map.n_valid,
         kpts=feats.kpts, kpt_valid=feats.valid, kpt_inlier=kpt_inlier,
         ba_rejected_total=st.ba_rejected,
@@ -349,15 +370,15 @@ def _step_track_impl(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tenso
 # ---------------------------------------------------------------------------
 
 
-def _keyframe_update_impl(cfg: VOConfig, cam: Camera, st: S.VOState,
-                          feats: FrameFeatures, curr_mp: torch.Tensor,
-                          *, height: int, width: int,
-                          u: Optional[torch.Tensor] = None) -> S.VOState:
+def keyframe_update(cfg: VOConfig, cam: Camera, st: S.VOState,
+                    feats: FrameFeatures, curr_mp: torch.Tensor,
+                    *, height: int, width: int,
+                    u: Optional[torch.Tensor] = None) -> S.VOState:
     """Match against the reference keyframe, epipolar-filter, triangulate
     with the tracked poses, angle-filter, insert with link reuse, cull the
     map and make the current frame the new reference. ``u`` are the
     E-RANSAC filter's uniforms when the caller made them (the batched
-    step)."""
+    steps)."""
     rng, k_epi = _next_key(st)
     ref = st.ref_feats
 
@@ -437,19 +458,17 @@ def step(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
     that are bitwise equal on every rank."""
     stage = int(st.stage)
     if stage == S.STAGE_BLANK:
-        return _step_first_impl(cfg, cam, st, img)
+        return step_first(cfg, cam, st, img)
     if stage == S.STAGE_INITIALIZING:
-        return _step_init_impl(cfg, cam, st, img)
-    new, out, feats, curr_mp = _step_track_impl(cfg, cam, st, img,
-                                                height=height, width=width)
+        return step_init(cfg, cam, st, img)
+    new, out, feats, curr_mp = step_track(cfg, cam, st, img, height=height, width=width)
     if cfg.ba.enabled and mesh is not None:
         new = _tree_select(out.tracking_ok, dist_ba.ba_update_state_dist(cfg, cam, mesh, new),
                            new)
     elif cfg.ba.enabled and bool(out.tracking_ok):
         new = ba.ba_update_state(cfg, cam, new)
     if bool(out.is_keyframe):
-        new = _keyframe_update_impl(cfg, cam, new, feats, curr_mp,
-                                    height=height, width=width)
+        new = keyframe_update(cfg, cam, new, feats, curr_mp, height=height, width=width)
     return new, out._replace(T_w_c=new.T_w_c, n_map_points=new.map.n_valid,
                              ba_rejected_total=new.ba_rejected)
 
@@ -479,22 +498,28 @@ def run_sequence(cfg: VOConfig, cam: Camera, st: S.VOState, frames, *,
 
 
 # ---------------------------------------------------------------------------
-# multi-stream tracking: B streams, one vmapped step
+# multi-stream steps: B streams, one vmapped step
 # ---------------------------------------------------------------------------
 
 
 class BatchedDraws(NamedTuple):
     """The uniforms a batched step's RANSACs draw from, stream by stream,
-    each from that stream's key as :func:`step` would draw them."""
+    each from that stream's key as :func:`step` would draw them. The init
+    fields are drawn for the general step only (:func:`draw_general`)."""
 
     pnp: torch.Tensor            # [B, pnp_n_hypotheses, N] (N: the candidate pool)
     epi: Optional[torch.Tensor]  # [B, n_hypotheses // 2, K]; None unless the
                                  # keyframe update's E-RANSAC filter is on
+    init_e: Optional[torch.Tensor] = None  # [B, S, K]: the init E-RANSAC's sample draw
+                                           # (S: n_hypotheses; 5pt: max(n // 4, 8))
+    init_h: Optional[torch.Tensor] = None  # [B, n_hypotheses, K]: the init H-RANSAC's
+    init_G: Optional[torch.Tensor] = None  # [B, S, 4, 4]: the five-point basis remix
 
 
 def _split_keys(rng: torch.Tensor) -> list[tuple[int, int, int, int]]:
-    """Per stream, as :func:`step` splits them: (key after tracking, PnP key,
-    key after a keyframe update, its E-RANSAC key)."""
+    """Per stream, as :func:`step` splits them: (key after tracking or an
+    init attempt, PnP key = init's estimation key, key after a keyframe
+    update, its E-RANSAC key)."""
     out = []
     for r in rng.tolist():
         r1, k_pnp = split_key(r)
@@ -503,8 +528,18 @@ def _split_keys(rng: torch.Tensor) -> list[tuple[int, int, int, int]]:
     return out
 
 
+def _next_keys(rng: torch.Tensor, stage: list[int], is_kf: list[int]) -> torch.Tensor:
+    """Each stream's key after its step, as :func:`step` leaves it: the same
+    key after a first frame, the first split's after an init attempt or a
+    tracking frame, the keyframe update's after a keyframe."""
+    return torch.tensor([r if s == S.STAGE_BLANK else k[2] if s == S.STAGE_TRACKING and kf
+                         else k[0] for r, k, s, kf in zip(rng.tolist(), _split_keys(rng),
+                                                          stage, is_kf)], dtype=torch.int64)
+
+
 def draw_batched(cfg: VOConfig, rng: torch.Tensor, device) -> BatchedDraws:
-    """Each stream's draws from its key ``rng`` [B] (CPU int64), on ``device``."""
+    """Each stream's tracking draws from its key ``rng`` [B] (CPU int64), on
+    ``device``."""
     keys = _split_keys(rng)
     M, C = cfg.map.max_map_points, cfg.map.track_candidates
     n_pnp = C if C and C < M else M
@@ -517,9 +552,53 @@ def draw_batched(cfg: VOConfig, rng: torch.Tensor, device) -> BatchedDraws:
     return BatchedDraws(pnp_u, epi_u)
 
 
+def draw_general(cfg: VOConfig, rng: torch.Tensor, device) -> BatchedDraws:
+    """:func:`draw_batched`'s draws and the init attempt's, each stream's
+    from its key ``rng`` [B] (CPU int64), on ``device``: the init's key is
+    the first split's second child (tracking's PnP key), split into the E
+    and H halves; the five-point E-RANSAC splits its half again into the
+    sample draw and the basis remix."""
+    K, n = cfg.orb.max_keypoints, cfg.ransac.n_hypotheses
+    halves = [split_key(k[1]) for k in _split_keys(rng)]
+    init_G = None
+    if cfg.ransac.essential_minimal == "5pt":
+        n_e = max(n // 4, 8)
+        parts = [split_key(k_e) for k_e, _ in halves]
+        init_e = torch.stack([uniforms(k_s, (n_e, K), device) for k_s, _ in parts])
+        init_G = torch.stack([fivepoint.remix_draw(k_b, n_e, device) for _, k_b in parts])
+    else:
+        init_e = torch.stack([uniforms(k_e, (n, K), device) for k_e, _ in halves])
+    init_h = torch.stack([uniforms(k_h, (n, K), device) for _, k_h in halves])
+    return draw_batched(cfg, rng, device)._replace(init_e=init_e, init_h=init_h, init_G=init_G)
+
+
 def _vmap_dims(record):
     """vmap's dims for a record: 0 for every tensor, None for a None field."""
     return tree_map(lambda v: None if v is None else 0, record)
+
+
+def _track_frame(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
+                 d: BatchedDraws, *, height: int, width: int,
+                 feats: Optional[FrameFeatures] = None):
+    """One stream's tracking frame in a batched body: tracking, then BA
+    (``cfg.ba.enabled``) and the keyframe update computed unconditionally
+    and applied where ``tracking_ok`` / ``is_keyframe`` hold."""
+    new, out, feats, curr_mp = step_track(cfg, cam, st, img, height=height, width=width,
+                                          u=d.pnp, feats=feats)
+    if cfg.ba.enabled:
+        new = _tree_select(out.tracking_ok, ba.ba_update_state(cfg, cam, new), new)
+    kf_new = keyframe_update(cfg, cam, new, feats, curr_mp, height=height, width=width, u=d.epi)
+    new = _tree_select(out.is_keyframe, kf_new, new)
+    return new, out._replace(T_w_c=new.T_w_c, n_map_points=new.map.n_valid,
+                             ba_rejected_total=new.ba_rejected)
+
+
+def _vmapped(one, sts: S.VOState, imgs: torch.Tensor, draws: BatchedDraws):
+    """``one(st, img, draws)`` vmapped over the streams, ``rng`` left out."""
+    st_in = sts._replace(rng=None)
+    st_dims = _vmap_dims(st_in)
+    return torch.func.vmap(one, in_dims=(st_dims, 0, _vmap_dims(draws)),
+                           out_dims=(st_dims, 0))(st_in, imgs, draws)
 
 
 def tracking_batched_body(cfg: VOConfig, cam: Camera, sts: S.VOState, imgs: torch.Tensor,
@@ -529,22 +608,33 @@ def tracking_batched_body(cfg: VOConfig, cam: Camera, sts: S.VOState, imgs: torc
     unconditionally and applied where ``tracking_ok`` / ``is_keyframe``
     hold. No host branch and no readback. ``rng`` is left out (None in the
     returned state). Returns (states, StepOutputs), [B] leading."""
+    return _vmapped(lambda st, img, d: _track_frame(cfg, cam, st, img, d, height=height,
+                                                    width=width), sts, imgs, draws)
+
+
+def general_batched_body(cfg: VOConfig, cam: Camera, sts: S.VOState, imgs: torch.Tensor,
+                         draws: BatchedDraws, *, height: int, width: int):
+    """The vmapped body of :func:`step_general_batched`: per stream, the
+    frame's features once, then the first-frame branch, the init branch and
+    the tracking branch (:func:`_track_frame`), each on the stream's state;
+    its stage selects the state and StepOutput, as ``lax.switch`` does
+    under ``jax.vmap``. No host branch and no readback. ``rng`` is left out
+    (None in the returned state). Returns (states, StepOutputs), [B]
+    leading."""
 
     def one(st, img, d):
-        new, out, feats, curr_mp = _step_track_impl(cfg, cam, st, img, height=height,
-                                                    width=width, u=d.pnp)
-        if cfg.ba.enabled:
-            new = _tree_select(out.tracking_ok, ba.ba_update_state(cfg, cam, new), new)
-        kf_new = _keyframe_update_impl(cfg, cam, new, feats, curr_mp,
-                                       height=height, width=width, u=d.epi)
-        new = _tree_select(out.is_keyframe, kf_new, new)
-        return new, out._replace(T_w_c=new.T_w_c, n_map_points=new.map.n_valid,
-                                 ba_rejected_total=new.ba_rejected)
+        feats = features_from_config(img, cfg.orb)
+        s_first, o_first = step_first(cfg, cam, st, img, feats=feats)
+        s_init, o_init = step_init(cfg, cam, st, img, u_e=d.init_e, u_h=d.init_h,
+                                   G_e=d.init_G, feats=feats)
+        s_track, o_track = _track_frame(cfg, cam, st, img, d, height=height, width=width,
+                                        feats=feats)
+        blank = st.stage == S.STAGE_BLANK
+        init = st.stage == S.STAGE_INITIALIZING
+        return (_tree_select(blank, s_first, _tree_select(init, s_init, s_track)),
+                _tree_select(blank, o_first, _tree_select(init, o_init, o_track)))
 
-    st_in = sts._replace(rng=None)
-    st_dims = _vmap_dims(st_in)
-    return torch.func.vmap(one, in_dims=(st_dims, 0, _vmap_dims(draws)),
-                           out_dims=(st_dims, 0))(st_in, imgs, draws)
+    return _vmapped(one, sts, imgs, draws)
 
 
 def step_tracking_batched(cfg: VOConfig, cam: Camera, sts: S.VOState, imgs, *,
@@ -561,12 +651,37 @@ def step_tracking_batched(cfg: VOConfig, cam: Camera, sts: S.VOState, imgs, *,
     if draws is None:
         draws = draw_batched(cfg, sts.rng, imgs.device)
     new, out = tracking_batched_body(cfg, cam, sts, imgs, draws, height=height, width=width)
-    stage, is_kf = torch.stack([sts.stage, out.is_keyframe.to(sts.stage.dtype)]).cpu()
-    if not bool((stage == S.STAGE_TRACKING).all()):
+    stage, is_kf = torch.stack([sts.stage, out.is_keyframe.to(sts.stage.dtype)]).cpu().tolist()
+    if any(s != S.STAGE_TRACKING for s in stage):
         raise ValueError("step_tracking_batched: every stream must be tracking "
-                         f"(stage {S.STAGE_TRACKING}); stages {stage.tolist()}")
-    rng = [k[2] if kf else k[0] for k, kf in zip(_split_keys(sts.rng), is_kf.tolist())]
-    return new._replace(rng=torch.tensor(rng, dtype=torch.int64)), out
+                         f"(stage {S.STAGE_TRACKING}); stages {stage}")
+    return new._replace(rng=_next_keys(sts.rng, stage, is_kf)), out
+
+
+def step_general_batched(cfg: VOConfig, cam: Camera, sts: S.VOState, imgs, *,
+                         height: int, width: int, draws: Optional[BatchedDraws] = None):
+    """B streams in any stage (:func:`models.state.stack_states`) advance by
+    one frame each, ``imgs`` [B,H,W], through :func:`general_batched_body`:
+    every kernel of the step is issued once for all B streams. Each stream's
+    draws come from its key as in :func:`step` (:func:`draw_general`;
+    ``draws`` overrides them); one readback after the body, of the stages
+    before the step and ``is_keyframe``, picks each stream's next key.
+    Returns (states, StepOutputs), [B] leading."""
+    imgs = _frames_on(imgs, sts.T_w_c.device).to(torch.float32)
+    if draws is None:
+        draws = draw_general(cfg, sts.rng, imgs.device)
+    new, out = general_batched_body(cfg, cam, sts, imgs, draws, height=height, width=width)
+    stage, is_kf = torch.stack([sts.stage, out.is_keyframe.to(sts.stage.dtype)]).cpu().tolist()
+    return new._replace(rng=_next_keys(sts.rng, stage, is_kf)), out
+
+
+def _run_batched(step_fn, cfg, cam, sts, frames, height, width):
+    frames = _frames_on(frames, sts.T_w_c.device)
+    outs = []
+    for i in range(frames.shape[1]):
+        sts, out = step_fn(cfg, cam, sts, frames[:, i], height=height, width=width)
+        outs.append(out)
+    return sts, _stack_outputs(outs)
 
 
 def run_sequences_batched(cfg: VOConfig, cam: Camera, sts: S.VOState, frames, *,
@@ -574,32 +689,41 @@ def run_sequences_batched(cfg: VOConfig, cam: Camera, sts: S.VOState, frames, *,
     """:func:`step_tracking_batched` over [B,N,H,W] frame stacks (moved to the
     device once). Returns (final states, StepOutput with [N,B] leading on
     every field: scan-major, as the JAX function)."""
-    frames = _frames_on(frames, sts.T_w_c.device)
-    outs = []
-    for i in range(frames.shape[1]):
-        sts, out = step_tracking_batched(cfg, cam, sts, frames[:, i], height=height,
-                                         width=width)
-        outs.append(out)
-    return sts, _stack_outputs(outs)
+    return _run_batched(step_tracking_batched, cfg, cam, sts, frames, height, width)
+
+
+def run_sequences_general(cfg: VOConfig, cam: Camera, sts: S.VOState, frames, *,
+                          height: int, width: int):
+    """:func:`step_general_batched` over [B,N,H,W] frame stacks (moved to the
+    device once), from states in any stage: from ``stack_states`` of fresh
+    ``init_state``s this is JAX's ``vmap(run_sequence)`` from
+    ``vmap(init_state)``. Returns (final states, StepOutput with [N,B]
+    leading on every field)."""
+    return _run_batched(step_general_batched, cfg, cam, sts, frames, height, width)
 
 
 class VOEngine:
     """Host driver: threads a VOState through :func:`step`, one frame at a
     time, and hands each frame's StepOutput back on the host.
 
-    ``mesh`` (a ``parallel.mesh.PointsMesh``): the windowed BA runs sharded
-    over its ranks; every rank drives its own engine over the same frames.
+    ``fused=False`` takes JAX's staged debugging route instead
+    (:meth:`_add_frame_staged`); both give the same poses. ``mesh`` (a
+    ``parallel.mesh.PointsMesh``): the windowed BA runs sharded over its
+    ranks; every rank drives its own engine over the same frames.
     ``cfg.orb.max_keypoints`` and ``cfg.map.max_map_points`` must divide by
-    the mesh size (ValueError)."""
+    the mesh size, and the route must be the fused one (ValueError)."""
 
     def __init__(self, cfg: VOConfig, height: int, width: int, seed: int = 0,
-                 device="cuda", mesh=None):
+                 device="cuda", fused: bool = True, mesh=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VOEngine: device 'cuda' requested but no CUDA device "
                                "is available (pass device='cpu' to run on the CPU)")
+        if mesh is not None and not fused:
+            raise ValueError("VOEngine: the mesh route needs the fused step (fused=True)")
         if mesh is not None:
             dist_ba.check_divides(mesh, cfg.orb.max_keypoints, cfg.map.max_map_points)
+        self.fused = fused
         self.mesh = mesh
         self.cfg = cfg
         self.height = height
@@ -612,9 +736,37 @@ class VOEngine:
         """Process one grayscale image [H,W] (uint8 or float). Returns the
         StepOutput with every field on the CPU, read back with one wait."""
         img = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(self.device)
+        if not self.fused:
+            return self._add_frame_staged(img)
         self.state, out = step(self.cfg, self.cam, self.state, img,
                                height=self.height, width=self.width, mesh=self.mesh)
         return output_to_host(out)
+
+    def _add_frame_staged(self, img: torch.Tensor) -> S.StepOutput:
+        """The staged route (JAX's ``_add_frame_staged``): the stage entry
+        points and ``ba_update_state`` one call after another. The tracking
+        stage's output is read back (one wait) and decides BA and the
+        keyframe update on the host; the pose, map count and BA rejections
+        after them come back with one more."""
+        cfg, cam = self.cfg, self.cam
+        stage = int(self.state.stage)
+        if stage == S.STAGE_BLANK:
+            self.state, out = step_first(cfg, cam, self.state, img)
+            return output_to_host(out)
+        if stage == S.STAGE_INITIALIZING:
+            self.state, out = step_init(cfg, cam, self.state, img)
+            return output_to_host(out)
+        self.state, out, feats, curr_mp = step_track(cfg, cam, self.state, img,
+                                                     height=self.height, width=self.width)
+        out = output_to_host(out)
+        if cfg.ba.enabled and bool(out.tracking_ok):
+            self.state = ba.ba_update_state(cfg, cam, self.state)
+        if bool(out.is_keyframe):
+            self.state = keyframe_update(cfg, cam, self.state, feats, curr_mp,
+                                         height=self.height, width=self.width)
+        st = self.state
+        return output_to_host(out._replace(T_w_c=st.T_w_c, n_map_points=st.map.n_valid,
+                                           ba_rejected_total=st.ba_rejected))
 
 
 def output_to_host(out: S.StepOutput) -> S.StepOutput:

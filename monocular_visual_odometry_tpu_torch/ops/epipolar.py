@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from monocular_visual_odometry_tpu_torch.ops import lie
+from monocular_visual_odometry_tpu_torch.ops.consts import device_const
 from monocular_visual_odometry_tpu_torch.ops.fivepoint import five_point_essential
 from monocular_visual_odometry_tpu_torch.ops.ransac import (
     hartley_normalize,
@@ -125,17 +126,18 @@ def estimate_essential(
     ``max(n_hypotheses // 4, 8)`` five-point samples of up to 8 candidates
     each; ``key`` splits into the sample draw and the basis remix, as
     ``jax.random.split`` does in the reference, and ``idx`` / ``G``
-    override them. ``u`` [n_hypotheses, N] are the 8-point draw's uniforms
-    (see ``ransac.sample_minimal_sets``)."""
+    override them. ``u`` [samples, N] are the sample draw's uniforms (see
+    ``ransac.sample_minimal_sets``). ``key`` may be None when the draws
+    are all given."""
     if minimal not in ("8pt", "5pt"):
         raise ValueError(f"estimate_essential: unknown minimal solver {minimal!r}")
     th = np.float32(threshold)
     cap = float(np.float32(2.0) * (th * th))
     ok = None
     if minimal == "5pt":
-        k_s, k_b = split_key(key)
+        k_s, k_b = split_key(key) if key is not None else (None, None)
         if idx is None:
-            idx = sample_minimal_sets(k_s, valid, max(n_hypotheses // 4, 8), 5)
+            idx = sample_minimal_sets(k_s, valid, max(n_hypotheses // 4, 8), 5, u)
         Es, ok = five_point_essential(x1[idx], x2[idx], k_b, G=G)
         Es, ok = Es.reshape(-1, 3, 3), ok.reshape(-1)
     else:
@@ -227,8 +229,8 @@ def refine_pose_sampson(
     w_valid = valid.to(x1.dtype)
     cutoff = 5.0 * huber_delta
     dev, dt = x1.device, x1.dtype
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=dt, device=dev)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=dt, device=dev)
+    ex = device_const([1.0, 0.0, 0.0], dev, dt)
+    ey = device_const([0.0, 1.0, 0.0], dev, dt)
     eye5 = torch.eye(5, dtype=dt, device=dev)
 
     def tangent_basis(t):
@@ -267,7 +269,8 @@ def refine_pose_sampson(
         w = w_valid * irls_w(r)
         H = J.T @ (J * w[:, None])
         g = J.T @ (r * w)
-        delta = -torch.linalg.solve(H + lam * eye5, g)
+        # unchecked: the checked solve reads LAPACK's info back
+        delta = -torch.linalg.solve_ex(H + lam * eye5, g).result
         R_new = lie.so3_exp(delta[:3]) @ R
         t_new = t + B @ delta[3:]
         t_new = t_new / (torch.linalg.norm(t_new) + _EPS)
@@ -290,8 +293,7 @@ def recover_pose_from_E(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
     U, _, Vt = lie.svd(E)
     U = U * torch.sign(torch.linalg.det(U))
     Vt = Vt * torch.sign(torch.linalg.det(Vt))
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    W = device_const([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], E.device, E.dtype)
     R1 = U @ W @ Vt
     R2 = U @ W.T @ Vt
     t = U[:, 2]
@@ -356,14 +358,16 @@ def _sym_transfer_dist2(H: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor):
 
 
 def estimate_homography(
-    p1: torch.Tensor, p2: torch.Tensor, valid: torch.Tensor, key: int,
+    p1: torch.Tensor, p2: torch.Tensor, valid: torch.Tensor, key: int | None,
     *, threshold_px: float = 3.0, n_hypotheses: int = 512,
-    idx: Optional[torch.Tensor] = None,
+    idx: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None,
 ) -> RansacModel:
-    """RANSAC homography from pixel correspondences, MSAC + consensus refit."""
+    """RANSAC homography from pixel correspondences, MSAC + consensus refit.
+    ``idx`` overrides the 4-point draws, ``u`` [n_hypotheses, N] are their
+    uniforms (see ``ransac.sample_minimal_sets``)."""
     cap = float(np.float32(threshold_px) * np.float32(threshold_px))
     if idx is None:
-        idx = sample_minimal_sets(key, valid, n_hypotheses, 4)
+        idx = sample_minimal_sets(key, valid, n_hypotheses, 4, u)
     Hs = _four_point_h(p1[idx], p2[idx])
 
     def msac(H):

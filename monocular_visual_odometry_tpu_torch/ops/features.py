@@ -255,6 +255,17 @@ def _interp_matrix(n_out: int, n_in: int) -> np.ndarray:
     return A
 
 
+def _taps(A: np.ndarray):
+    """The two taps of each row of an interpolation matrix ``A``: (first
+    index, second index, first weight, second weight), the weights
+    ``A``'s own; a row with one nonzero gets a second tap of weight 0."""
+    j0 = np.argmax(A != 0, axis=1)
+    j1 = A.shape[1] - 1 - np.argmax(A[:, ::-1] != 0, axis=1)
+    w0 = A[np.arange(A.shape[0]), j0]
+    w1 = np.where(j1 != j0, A[np.arange(A.shape[0]), j1], 0.0).astype(np.float32)
+    return j0, j1, w0, w1
+
+
 @functools.lru_cache(maxsize=16)
 def _atlas_constants(height: int, width: int, n_levels: int, scale: float,
                      grid_size: int, device: str):
@@ -270,28 +281,39 @@ def _atlas_constants(height: int, width: int, n_levels: int, scale: float,
     lvl_ox = np.asarray([o[0] for o in offsets], dtype=np.float32)
     lvl_oy = np.asarray([o[1] for o in offsets], dtype=np.float32)
     lvl_scale = np.asarray([scale**l for l in range(n_levels)], dtype=np.float32)
-    resize = []
+    t = lambda a: torch.from_numpy(a).to(device)
+    resize, taps = [], []
     prev = (height, width)
     for l in range(1, n_levels):
         h_out, w_out = shapes[l]
-        resize.append((torch.from_numpy(_interp_matrix(h_out, prev[0])).to(device),
-                       torch.from_numpy(_interp_matrix(w_out, prev[1]).T.copy()).to(device)))
+        Ar, Ac = _interp_matrix(h_out, prev[0]), _interp_matrix(w_out, prev[1])
+        resize.append((t(Ar), t(Ac.T.copy())))
+        taps.append(tuple(tuple(t(a) for a in _taps(A)) for A in (Ar, Ac)))
         prev = (h_out, w_out)
-    t = lambda a: torch.from_numpy(a).to(device)
     return dict(inside=t(inside), col_level=t(col_level), lvl_ox=t(lvl_ox),
-                lvl_oy=t(lvl_oy), lvl_scale=t(lvl_scale), resize=resize,
+                lvl_oy=t(lvl_oy), lvl_scale=t(lvl_scale), resize=resize, taps=taps,
                 pool=t(_POOL_PTS.astype(np.float32)),
                 pair_i=t(_PAIR_I.astype(np.int64)), pair_j=t(_PAIR_J.astype(np.int64)),
                 weights=t(np.array([1, 2, 4, 8, 16, 32, 64, 128], np.int32)))
 
 
 def build_pyramid(img: torch.Tensor, n_levels: int, scale: float) -> list[torch.Tensor]:
-    """Bilinear pyramid by two fp32 matrix products per level."""
+    """Bilinear pyramid by two fp32 matrix products per level. On a card each
+    product is its two taps per output instead (the same weights, summed in
+    the same order): cuBLAS picks its GEMM kernel by the whole problem, so
+    under ``torch.func.vmap`` a stream's pyramid would round differently at
+    each batch size, and the keypoints with it."""
     H, W = img.shape
     consts = _atlas_constants(H, W, n_levels, scale, 16, str(img.device))
     levels = [img]
-    for Ar, AcT in consts["resize"]:
-        levels.append(Ar @ levels[-1] @ AcT)
+    for (Ar, AcT), ((j0, j1, w0, w1), (k0, k1, v0, v1)) in zip(consts["resize"],
+                                                               consts["taps"]):
+        x = levels[-1]
+        if img.is_cuda:
+            y = x[j0] * w0[:, None] + x[j1] * w1[:, None]
+            levels.append(y[:, k0] * v0 + y[:, k1] * v1)
+        else:
+            levels.append(Ar @ x @ AcT)
     return levels
 
 

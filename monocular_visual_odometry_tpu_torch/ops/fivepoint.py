@@ -25,6 +25,7 @@ import torch
 
 from monocular_visual_odometry_tpu_torch.ops import lie
 from monocular_visual_odometry_tpu_torch.ops import precision  # noqa: F401  (TF32 off)
+from monocular_visual_odometry_tpu_torch.ops.consts import device_const
 
 _EPS = 1e-12
 
@@ -66,7 +67,7 @@ _THETA = np.linspace(-1.5607, 1.5607, _GRID).astype(np.float32)  # tan(±1.5607)
 
 
 def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(a, device=like.device).to(like.dtype)
+    return device_const(a, like.device, like.dtype)
 
 
 def _finite(M: torch.Tensor) -> torch.Tensor:
@@ -156,10 +157,17 @@ def five_point_essential(x1: torch.Tensor, x2: torch.Tensor, key: int = 0,
     # random orthonormal remix: the fixed "coefficient of E4 is 1" chart
     # misses solutions orthogonal to E4; a random one makes that measure-zero
     if G is None:
-        gen = torch.Generator(device=x1.device)
-        gen.manual_seed(key)
-        G = torch.randn((B, 4, 4), generator=gen, device=x1.device, dtype=x1.dtype)
+        G = remix_draw(key, B, x1.device, x1.dtype)
     return _candidates(basis @ torch.linalg.qr(G.to(x1.dtype)).Q)
+
+
+def remix_draw(key: int, n: int, device, dtype=torch.float32) -> torch.Tensor:
+    """The Gaussian basis remix [n,4,4] that :func:`five_point_essential`
+    draws from ``key`` for ``n`` samples (a generator on ``device`` seeded
+    with it)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(key)
+    return torch.randn((n, 4, 4), generator=gen, device=device, dtype=dtype)
 
 
 def _candidates(basis: torch.Tensor):
@@ -169,11 +177,11 @@ def _candidates(basis: torch.Tensor):
     dev, dt = basis.device, basis.dtype
     C = _constraints(basis.reshape(B, 3, 3, 4))                    # [B,10,20]
     Mcoef = torch.zeros((B, 10, 10, 4), dtype=dt, device=dev)
-    Mcoef[:, :, torch.as_tensor(_COL, device=dev), torch.as_tensor(_ZDEG, device=dev)] = C
+    Mcoef[:, :, device_const(_COL, dev, torch.int64), device_const(_ZDEG, dev, torch.int64)] = C
 
     # --- bracket real roots of det M(z) on the tan grid; theta stays
     # float32 at any precision, as in the reference
-    theta = torch.as_tensor(_THETA, device=dev)
+    theta = device_const(_THETA, dev)
 
     def det_sign(th):
         return torch.sign(_det(_m_of_z(Mcoef[:, None], torch.tan(th).to(dt))))

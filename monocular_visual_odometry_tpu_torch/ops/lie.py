@@ -167,11 +167,61 @@ def relative_T(T_w_a: torch.Tensor, T_w_b: torch.Tensor) -> torch.Tensor:
     return inv_T(T_w_a) @ T_w_b
 
 
+_JACOBI_SWEEPS = 4
+
+
+def svd3_jacobi(M: torch.Tensor):
+    """SVD of 3x3 matrices [..., 3, 3] by one-sided (Hestenes) Jacobi:
+    ``_JACOBI_SWEEPS`` sweeps of the three plane rotations that orthogonalize
+    a pair of columns of M, accumulated into V; the singular values are the
+    column norms of M V, in descending order. Tensor ops only, so nothing
+    is read back. U's third column is u1 x u2, signed as M V's third column:
+    U is orthonormal however small the third singular value. Returns
+    (U, S, Vt) as ``torch.linalg.svd``; the signs of paired singular vectors
+    may differ from LAPACK's."""
+    # columns of M over columns of V: one rotation updates both
+    cols = list(torch.cat([M, _eye3(M, M.shape)], dim=-2).unbind(-1))   # 3 x [..., 6]
+    for _ in range(_JACOBI_SWEEPS):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            ap, aq = cols[p], cols[q]
+            alpha = torch.sum(ap[..., :3] * ap[..., :3], dim=-1)
+            beta = torch.sum(aq[..., :3] * aq[..., :3], dim=-1)
+            gamma = torch.sum(ap[..., :3] * aq[..., :3], dim=-1)
+            tau = beta - alpha
+            # tan of the angle that zeroes the pair's inner product (the
+            # smaller root); 0 when the pair is already orthogonal
+            t = (2.0 * gamma * torch.where(tau >= 0, 1.0, -1.0)
+                 / (torch.abs(tau) + torch.sqrt(tau * tau + 4.0 * gamma * gamma) + 1e-30))
+            c = torch.rsqrt(1.0 + t * t)[..., None]
+            s = c * t[..., None]
+            cols[p], cols[q] = c * ap - s * aq, s * ap + c * aq
+    AV = torch.stack(cols, dim=-1)                                         # [..., 6, 3]
+    S = torch.linalg.vector_norm(AV[..., :3, :], dim=-2)
+    order = torch.argsort(S, dim=-1, descending=True)
+    S = torch.gather(S, -1, order)
+    AV = torch.gather(AV, -1, order[..., None, :].expand(AV.shape))
+    A, V = AV[..., :3, :], AV[..., 3:, :]
+    # a zero column gets a unit vector: e_x for u1, for u2 one orthogonal to u1
+    e = _eye3(M, M.shape)
+    u1 = torch.where(S[..., 0, None] > 0, A[..., 0] / S[..., 0, None], e[..., 0])
+    w = A[..., 1] - torch.sum(A[..., 1] * u1, dim=-1, keepdim=True) * u1
+    fb = torch.linalg.cross(u1, torch.where(torch.abs(u1[..., :1]) < 0.9, e[..., 0], e[..., 1]))
+    n, n_fb = (torch.linalg.vector_norm(v, dim=-1, keepdim=True) for v in (w, fb))
+    u2 = torch.where(n > 1e-30, w / n, fb / n_fb)
+    u3 = torch.linalg.cross(u1, u2)
+    u3 = u3 * torch.where(torch.sum(u3 * A[..., 2], dim=-1, keepdim=True) >= 0, 1.0, -1.0)
+    return torch.stack([u1, u2, u3], dim=-1), S, V.transpose(-1, -2)
+
+
 def svd(M: torch.Tensor):
     """``torch.linalg.svd`` that, like ``jnp.linalg.svd``, turns a matrix
-    with non-finite entries into NaN factors instead of raising."""
+    with non-finite entries into NaN factors instead of raising. On a card a
+    3x3 is factored by :func:`svd3_jacobi`: ``torch.linalg.svd`` reads its
+    ``info`` back there (a wait on the stream) and has no ``_ex`` form."""
     ok = torch.isfinite(M).flatten(-2).all(-1)[..., None, None]
-    U, S, Vt = torch.linalg.svd(torch.where(ok, M, torch.zeros_like(M)))
+    M0 = torch.where(ok, M, torch.zeros_like(M))
+    U, S, Vt = (svd3_jacobi(M0) if M.is_cuda and M.shape[-2:] == (3, 3)
+                else torch.linalg.svd(M0))
     nan = torch.full((), float("nan"), dtype=M.dtype, device=M.device)
     return (torch.where(ok, U, nan), torch.where(ok[..., 0], S, nan),
             torch.where(ok, Vt, nan))

@@ -16,6 +16,7 @@ import torch
 from monocular_visual_odometry_tpu_torch.ops import epipolar as epi
 from monocular_visual_odometry_tpu_torch.ops import lie, scoring
 from monocular_visual_odometry_tpu_torch.ops.camera import Camera, pixel2cam_norm_plane
+from monocular_visual_odometry_tpu_torch.ops.consts import device_const
 from monocular_visual_odometry_tpu_torch.ops.ransac import split_key
 
 
@@ -39,31 +40,36 @@ def _focal(cam: Camera) -> np.float32:
 
 def estimate_relative_pose(
     uv1: torch.Tensor, uv2: torch.Tensor, valid: torch.Tensor,
-    cam: Camera, key: int,
+    cam: Camera, key: int | None,
     *, threshold_px: float = 1.0, h_threshold_px: float = 3.0,
     n_hypotheses: int = 512, sigma: float = 1.0,
     use_reference_selection: bool = False, essential_minimal: str = "8pt",
     idx_e: Optional[torch.Tensor] = None, idx_h: Optional[torch.Tensor] = None,
     G_e: Optional[torch.Tensor] = None,
+    u_e: Optional[torch.Tensor] = None, u_h: Optional[torch.Tensor] = None,
 ) -> TwoViewResult:
     """E/H dual estimation + model selection on matched pixel
     correspondences. ``key`` is split into the E and H draws as
     ``jax.random.split`` is in the reference; ``idx_e`` / ``idx_h``
-    override the draws, and ``G_e`` the five-point basis remix."""
+    override the draws, ``u_e`` / ``u_h`` are the uniforms they are made
+    from (each RANSAC's sample draw from its half of the split), and
+    ``G_e`` the five-point basis remix. ``key`` may be None when every
+    draw is given."""
     x1 = pixel2cam_norm_plane(uv1, cam)
     x2 = pixel2cam_norm_plane(uv2, cam)
-    K = cam.K(uv1.device).to(uv1.dtype)
+    K = device_const([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
+                     uv1.device, uv1.dtype)
     th_n = float(np.float32(threshold_px) / _focal(cam))
-    k_e, k_h = split_key(key)
+    k_e, k_h = split_key(key) if key is not None else (None, None)
 
     e_model = epi.estimate_essential(x1, x2, valid, k_e, threshold=th_n,
                                      n_hypotheses=n_hypotheses,
-                                     minimal=essential_minimal, idx=idx_e, G=G_e)
+                                     minimal=essential_minimal, idx=idx_e, G=G_e, u=u_e)
     R_e, t_e, _ = epi.recover_pose_from_E(e_model.model, x1, x2, e_model.inliers)
 
     h_model = epi.estimate_homography(uv1, uv2, valid, k_h,
                                       threshold_px=h_threshold_px,
-                                      n_hypotheses=n_hypotheses, idx=idx_h)
+                                      n_hypotheses=n_hypotheses, idx=idx_h, u=u_h)
     Rs_h, ts_h, ns_h, valid4 = epi.decompose_homography(h_model.model, K)
 
     Kinv = torch.linalg.inv_ex(K).inverse

@@ -1,6 +1,7 @@
 """The CUDA matcher kernel against its plain PyTorch version (one call and
-one batched launch over B streams), BA, the five-point solver and the
-batched tracking step on the card against the same calls on the CPU.
+one batched launch over B streams), BA, the five-point solver, the batched
+tracking step and the general multi-stream step on the card against the
+same calls on the CPU.
 
 Marked ``cuda``: here, without a card, every test skips. On a machine with
 one (which has no JAX, so the JAX-importing ``conftest.py`` is left out):
@@ -254,6 +255,69 @@ def test_batched_step_on_card_matches_cpu_and_never_waits(card):
         assert ((g - w).abs() <= 0.05 * w).all(), f
     for b in range(2):
         assert float(TL.pose_distance(got.T_w_c[b].cpu(), want.T_w_c[b])) < 1e-3
+
+
+@pytest.mark.cuda
+def test_features_under_vmap_do_not_depend_on_the_batch(card):
+    """The frontend vmapped over B copies of a frame gives each copy exactly
+    what it gives at B=1 (the pyramid's taps, not a GEMM whose kernel cuBLAS
+    picks by the batch)."""
+    cfg = VOConfig()
+    seq, _ = TSYN.render_sequence_arrays(1, seed=0, translation_step=0.05)
+    img = torch.from_numpy(seq[0]).float().cuda()
+    feats = lambda x: tuple(TV.features_from_config(x, cfg.orb))
+    one = torch.func.vmap(feats)(img[None])
+    for b in (2, 4, 8):
+        many = torch.func.vmap(feats)(img[None].expand(b, -1, -1).contiguous())
+        for f, g in zip(one, many):
+            assert all(torch.equal(g[i], f[0]) for i in range(b)), b
+
+
+@pytest.mark.cuda
+def test_general_step_on_card_matches_cpu_and_never_waits(card):
+    """One mixed-stage general step (streams blank, initializing, tracking,
+    tracking on a blank frame) on the card, its body under
+    set_sync_debug_mode("error") with one batched launch per match (init,
+    tracking, keyframe update), against the same step on a CPU copy fed the
+    card's draws, with the budgets of the batched tracking step above; each
+    stream's next key as ``step`` leaves it."""
+    cfg = _small_cfg()
+    seq, _ = TSYN.render_sequence_arrays(10, seed=0, translation_step=0.05)
+    eng = TV.VOEngine(cfg, 480, 640, device="cuda")
+    states = [eng.state]
+    for f in seq[:8]:
+        eng.add_frame(f)
+        states.append(eng.state)
+    assert int(states[8].stage) == TS.STAGE_TRACKING
+    picked = [states[0], states[1], states[8], states[8]]
+    sts = TS.stack_states(picked)
+    imgs = torch.from_numpy(np.stack([seq[0], seq[1], seq[8], np.zeros_like(seq[0])]))
+    imgs = imgs.float().cuda()
+    draws = TV.draw_general(cfg, sts.rng, "cuda")
+    before = TH.hamming_nn_top2.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        TV.general_batched_body(cfg, CAM, sts, imgs, draws, height=480, width=640)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert TH.hamming_nn_top2.launches == before + 3
+    new, got = TV.step_general_batched(cfg, CAM, sts, imgs, height=480, width=640,
+                                       draws=draws)
+    _, want = TV.step_general_batched(
+        cfg, CAM, TS.state_to(sts, "cpu"), imgs.cpu(), height=480, width=640,
+        draws=TV.BatchedDraws(*(None if d is None else d.cpu() for d in draws)))
+    for f in ("stage", "n_keypoints", "n_candidates", "is_keyframe", "tracking_ok",
+              "ba_rejected_total"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    for f in ("n_matches", "n_inliers", "n_map_points"):
+        g, w = getattr(got, f).cpu(), getattr(want, f)
+        assert ((g - w).abs() <= 0.05 * w).all(), f
+    assert got.tracking_ok.tolist() == [True, True, True, False]
+    for b, (st, img) in enumerate(zip(picked, imgs)):
+        assert float(TL.pose_distance(got.T_w_c[b].cpu(), want.T_w_c[b])) < 1e-3
+        want_st, _ = TV.step(cfg, CAM, st, img, height=480, width=640)
+        assert int(new.rng[b]) == int(want_st.rng)
 
 
 # ---------------------------------------------------------------------------

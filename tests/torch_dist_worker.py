@@ -12,7 +12,8 @@ Jobs (``python tests/torch_dist_worker.py JOB RANK WORLD DIR``):
                 BA settings); per case the solution and the collective record
 - ``mesh``      the three collectives on the spec's arrays, ``points_mesh``
                 subsets, DTensor placements
-- ``timeout``   rank 1 skips a collective: rank 0 must raise within the timeout
+- ``timeout``   rank 1 skips a collective: rank 0 must raise within the
+                timeout, that of a group made for the job (the world's is the default)
 - ``pipeline``  ``VOEngine(mesh=...)`` over frames, per config of the spec
 - ``single``    the same runs without a mesh (one process, no world)
 - ``jax``       the JAX package's ``VOEngine(mesh=points_mesh())`` on its
@@ -139,8 +140,24 @@ def _job_mesh(mesh, inp, spec):
 
 
 def _job_timeout(mesh, inp, spec):
-    import torch
+    """The world joins, and the job's group connects, with the default
+    timeout: on a loaded host the ranks' start-up can be seconds apart. Only
+    then does the group take the spec's timeout, for the collective under
+    test."""
+    import datetime
 
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from monocular_visual_odometry_tpu_torch.parallel import mesh as PM
+
+    group = dist.new_group(list(range(mesh.size)),
+                           timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    dist.barrier(group=group)
+    dist.distributed_c10d._set_pg_timeout(datetime.timedelta(seconds=spec["timeout_s"]), group)
+    mesh = PM.PointsMesh(DeviceMesh.from_group(group, "cpu",
+                                               mesh_dim_names=(PM.POINTS_AXIS,)), group)
     t0 = time.perf_counter()
     if mesh.rank == 0:
         try:
@@ -226,7 +243,7 @@ def main(job, rank, world, workdir):
         from monocular_visual_odometry_tpu_torch.parallel import mesh as PM
 
         PM.init_distributed(f"file://{os.path.join(workdir, 'store')}", world, rank,
-                            backend="gloo", timeout_s=spec.get("timeout_s", TIMEOUT_S))
+                            backend="gloo", timeout_s=TIMEOUT_S)
         mesh = PM.points_mesh()
     jobs = {"ba": _job_ba, "mesh": _job_mesh, "timeout": _job_timeout,
             "pipeline": _job_pipeline, "single": _job_pipeline, "jax": _job_jax}
