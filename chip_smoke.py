@@ -24,20 +24,30 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    path's r (all of it);
 4. main path: renders the 150-frame synthetic benchmark in memory and runs the
    port's ``VOEngine`` (default config at full width, windowed BA on) on
-   ``cuda``; checks that it reaches tracking, fails tracking on at most 5
-   frames, keeps the Sim(3) ATE under 3% of the path length, that every
-   kernel of the path launched once per ``match_features`` call and
-   ``ba_update_state`` once per tracking frame whose tracking held (counts
-   reset just before the run, read just after);
-   4a. the same with BA off, for the fps beside BA on in this call; then
-   ``add_frame``'s readback over 20 tracking frames: after ``step`` returns,
-   the ``StepOutput`` comes back with exactly one synchronizing call
-   (counted with ``torch.cuda.set_sync_debug_mode("warn")``), equal field by
-   field to a ``.cpu()`` per field (which waits once per field), and the host
-   ms of both, in turns;
+   ``cuda``: the graph route, one replay of a captured stage program and one
+   readback per frame; checks that it reaches tracking, fails tracking on at
+   most 5 frames, keeps the Sim(3) ATE under 3% of the path length, that
+   every kernel of the path launched once per ``match_features`` call
+   (counted per replay: a tracking frame runs the keyframe update's match
+   too), ``ba_update_state`` was computed once per tracking frame (applied
+   where ``tracking_ok`` held), one replay per frame (counts reset just
+   before the run, read just after), and prints each stage's warm-up and
+   capture seconds; in turns with it (graph, eager, eager, graph) the eager
+   host-branch ``step`` over the same frames (BA computed where
+   ``tracking_ok`` held), which the graph route must match: the same init
+   frame and keyframe decisions, pose distance <= 1e-4 on every frame;
+   4a. the same with BA off (graph, then eager), for the fps beside BA on in
+   this call; then ``add_frame``'s readback over 20 tracking frames: after
+   ``step`` returns, the ``StepOutput`` comes back with exactly one
+   synchronizing call (counted with ``torch.cuda.set_sync_debug_mode("warn")``),
+   equal field by field to a ``.cpu()`` per field (which waits once per
+   field), and the host ms of both, in turns; and the graph route's whole
+   ``add_frame`` over the same frames: exactly one synchronizing call;
    4b. profiles a window of steady tracking frames (BA on) with
-   ``torch.profiler`` and prints the device-busy share and the kernels that
-   take the most time;
+   ``torch.profiler`` (device activity), the graph route's replays and the
+   eager step's frames, and prints kernels per frame, the device-busy share
+   and the kernels that take the most time; the replays must show
+   ``hamming_nn_top2`` twice per frame;
    4c. runs one ``ba_update_state`` on the state after that window under
    ``torch.cuda.set_sync_debug_mode("error")`` (the LM never waits on the
    host), holds it against the same call on a CPU copy of the state, times
@@ -46,9 +56,12 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    on) over the 150 frames with the checks of phase 4 (the 3% ATE budget is
    one of the whole path; each run also prints its ATE over the first 60
    frames, which reads higher);
-   4e. the batched steady state (``run_sequences_batched``): eight 60-frame
+   4e. the batched steady state (``run_sequences_batched``, one replay of the
+   captured body per step; each B captured off the clock): eight 60-frame
    sequences (seeds 0-7), each warmed up single-stream over 15 frames, then
-   frames 15-59 single-stream (the reference) and batched at B = 1, 2, 4, 8;
+   frames 15-59 single-stream (the reference) and batched at B = 1, 2, 4, 8,
+   at B = 1 and 8 also the eager vmapped body over the same steps (every
+   decision equal, poses within 1e-4, its fps beside the graph's);
    checks 2 matcher launches and 1 ``ba_update_state`` call per batched step
    whatever B, every stream tracking (<= 5 failures), its first step its
    single-stream step up to rounding (pose distance < 1e-3, same decisions),
@@ -56,8 +69,9 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    half) of its single-stream ATE or not above the worst single-stream ATE
    of the call (at B > 1 rounding can flip a keyframe decision, after which
    the keys part and the run is another run); profiles 2 batched steps at
-   B = 1 and 8 (device kernels per step: B=8 at most 1.5x B=1), runs one B=8
-   vmapped body under ``set_sync_debug_mode("error")`` and holds one B=2 step
+   B = 1 and 8, graph and eager (device kernels per step: B=8 at most 1.5x
+   B=1), runs one B=8 vmapped body under ``set_sync_debug_mode("error")``,
+   counts one wait in a graph-route B=8 step, and holds one B=2 step
    against a CPU copy fed the same draws (matches, inliers and map points within 5%, the
    other counts equal, poses within 1e-3);
    4f. the command-line entry point: writes phase 4's 150 frames and their
@@ -68,7 +82,8 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    --viewer --save-frames``) and checks exit 0, the loader line, 150 rows
    in ``cam_traj.txt``, Sim(3) ATE < 3% of the path, <= 5 ``TRACK-FAIL``
    banners, matcher launches = ``match_features`` calls and BA calls =
-   tracking frames with ``tracking_ok`` (both read from the banners), the
+   tracking frames (both read from the banners: the CLI's engine is the
+   graph route), the
    viewer, the 150 annotated frames and the three checkpoints; prints the
    largest pose distance to phase 4's run of the same frames (and, if it is
    above 1e-4, runs phase 4's engine again to show whether two runs on the
@@ -121,16 +136,18 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    timeout is flagged by the watchdog when the timeout passes, and the
    process ends with a non-zero code;
    4i. the general step (``run_sequences_general``: B streams in any stage in
-   one vmapped step, JAX's ``profile_throughput.py`` "general" protocol)
-   over 4e's eight 60-frame sequences from fresh states keyed 0..B-1, so
-   every stream goes through init, at B = 1 and 8: aggregate fps beside 4e's
-   tracking-only B=8 rate and the single-stream rate of the call; 3 matcher
+   one vmapped step, one replay of the captured body per step, JAX's
+   ``profile_throughput.py`` "general" protocol) over 4e's eight 60-frame
+   sequences from fresh states keyed 0..B-1, so every stream goes through
+   init, at B = 1 and 8, each beside the eager body over the same steps (as
+   in 4e): aggregate fps beside 4e's tracking-only B=8 rate and the
+   single-stream rate of the call; 3 matcher
    launches (init, tracking, keyframe update) and 1 ``ba_update_state``
    call per step whatever B; every stream tracking (<= 5 failures), its
    first step its single-stream step, the whole B=1 run the single-stream
    run (4e's run of the same stream from frame 0), the ATE rule of 4e;
-   device kernels and busy share over 2 profiled steps (B=8 at most 1.5x
-   B=1); one mixed-stage B=5 step (blank, a failing and a succeeding init
+   device kernels and busy share over 2 profiled steps, graph and eager (B=8
+   at most 1.5x B=1); one mixed-stage B=5 step (blank, a failing and a succeeding init
    attempt, tracking, tracking on a blank frame) whose body runs under
    ``set_sync_debug_mode("error")``, equal to ``step`` per stream (decisions,
    next keys, poses within 1e-3) and to the same step on a CPU copy fed the
@@ -196,6 +213,7 @@ BATCH_PROFILE_STEPS = 2  # profiled steps per batch size (the profiler's events 
 CLI_CHECKPOINT_EVERY, CLI_RESUME_FROM = 50, 100  # phase 4f: resume from state_00099.npz
 CLI_CONFIG_FRAMES = 30   # phase 4f: frames of the --config run
 POSE_TOL = 1e-4          # phase 4f: CLI and resumed poses against the in-process runs
+ROUTE_TOL = 1e-4         # phase 4: the graph route against the eager step, pose distance
 KERNELS_PER_STEP_RATIO = 1.5  # B=8 device kernels per batched step, at most x B=1's
 # phase 4i: the general step (JAX's profile_throughput.py "general"), over 4e's
 # eight sequences from fresh states keyed 0..B-1
@@ -426,15 +444,39 @@ def _batched_inputs(b, k1, k2, seed, *, alt=False, ragged=False):
     return tuple(None if ts[0] is None else torch.stack(ts) for ts in zip(*streams))
 
 
-def _drive(cfg, frames, gt, mesh=None):
-    """Drive a fresh ``VOEngine`` on the card over ``frames`` (the user's entry
-    point, one ``add_frame`` per frame; ``mesh``: the mesh route, BA sharded);
-    the kernel and BA counts are set to 0 just before and read just after.
-    Returns the run's record: trajectory, host ms per frame, fps, per-frame
-    diagnostics, the counts and what they should be (``match_features`` calls;
-    BA: tracking frames whose tracking held, or on the mesh route every
-    tracking frame, from the frames' stages), Sim(3) ATE and end drift
-    against ``gt`` (inf where a pose is not finite)."""
+class _EagerEngine:
+    """The eager reference route: ``step`` (the host-branch step) one frame
+    at a time, its StepOutput read back as ``VOEngine`` reads it."""
+
+    def __init__(self, cfg, seed=0):
+        from monocular_visual_odometry_tpu_torch.models import state as S
+        from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
+
+        self.cfg, self.cam = cfg, VOEngine(cfg, H, W, device="cuda").cam
+        self.state = S.init_state(cfg, seed, "cuda")
+
+    def add_frame(self, img):
+        from monocular_visual_odometry_tpu_torch.models import vo as V
+
+        img = torch.as_tensor(np.asarray(img), dtype=torch.float32).to("cuda")
+        self.state, out = V.step(self.cfg, self.cam, self.state, img, height=H, width=W)
+        return V.output_to_host(out)
+
+
+def _drive(cfg, frames, gt, mesh=None, route="graph"):
+    """Drive a fresh engine on the card over ``frames``, one ``add_frame`` per
+    frame: ``route`` "graph" is ``VOEngine`` (the user's entry point: one
+    graph replay per frame; ``mesh``: the mesh route, eager, BA sharded),
+    "eager" the host-branch ``step`` (:class:`_EagerEngine`); the kernel and
+    BA counts are set to 0 just before and read just after. Returns the
+    run's record: trajectory, host ms per frame, fps, per-frame
+    diagnostics, the counts and what they should be (``match_features``
+    calls: the graph route's tracking frames run the keyframe update's match
+    every time; BA computed: every tracking frame on the graph and mesh
+    routes, tracking frames whose tracking held on the eager one; BA
+    applied: tracking frames whose tracking held), the graph route's
+    capture seconds per stage, Sim(3) ATE and end drift against ``gt`` (inf
+    where a pose is not finite)."""
     from monocular_visual_odometry_tpu_torch.models import ba as BA
     from monocular_visual_odometry_tpu_torch.models import state as S
     from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
@@ -442,12 +484,15 @@ def _drive(cfg, frames, gt, mesh=None):
     from monocular_visual_odometry_tpu_torch.parallel import dist_ba as DB
     from monocular_visual_odometry_tpu_torch.utils import metrics
 
-    eng = VOEngine(cfg, H, W, seed=0, device="cuda", mesh=mesh)
+    eng = (_EagerEngine(cfg) if route == "eager" else
+           VOEngine(cfg, H, W, seed=0, device="cuda", mesh=mesh))
+    graph = route == "graph" and mesh is None
     torch.cuda.synchronize()
     HM.hamming_nn_top2.launches = 0
     BA.ba_update_state.calls = 0
     DB.ba_update_state_dist.calls = 0
-    outs, n_fail, n_match, n_ba, stage, per_frame = [], 0, 0, 0, S.STAGE_BLANK, []
+    outs, n_fail, n_match, n_ba, n_applied, stage, per_frame = [], 0, 0, 0, 0, S.STAGE_BLANK, []
+    n_captured = 0  # frames in a stage whose program is a graph
     stamps = []  # host clock after each frame (add_frame reads its output back)
     t0 = time.perf_counter()
     for f in frames:
@@ -456,9 +501,11 @@ def _drive(cfg, frames, gt, mesh=None):
         stamps.append(time.perf_counter())
         per_frame.append(HM.hamming_nn_top2.launches - before)
         n_match += {S.STAGE_BLANK: 0, S.STAGE_INITIALIZING: 1}.get(
-            stage, 1 + int(bool(out.is_keyframe)))
-        n_ba += int(cfg.ba.enabled and stage == S.STAGE_TRACKING
-                    and (mesh is not None or bool(out.tracking_ok)))
+            stage, 2 if graph else 1 + int(bool(out.is_keyframe)))
+        tracked = cfg.ba.enabled and stage == S.STAGE_TRACKING
+        n_ba += int(tracked and (route == "graph" or bool(out.tracking_ok)))
+        n_applied += int(tracked and bool(out.tracking_ok))
+        n_captured += int(graph and stage in eng.captured_stages)
         stage = int(out.stage)
         if stage == S.STAGE_TRACKING and not bool(out.tracking_ok):
             n_fail += 1
@@ -470,12 +517,18 @@ def _drive(cfg, frames, gt, mesh=None):
     stages = np.array([int(o.stage) for o in outs])
     finite = bool(np.isfinite(est).all())
     tracking = stages == S.STAGE_TRACKING
+    programs = eng.stages.programs if graph else {}
     return dict(
-        frames=n, wall_s=wall, fps=n / wall, stage=stage, n_fail=n_fail,
+        frames=n, wall_s=wall, fps=n / wall, stage=stage, n_fail=n_fail, route=route,
         launches=HM.hamming_nn_top2.launches, match_calls=n_match, mesh=mesh is not None,
         ba_calls=DB.ba_update_state_dist.calls if mesh else BA.ba_update_state.calls,
         other_ba_calls=BA.ba_update_state.calls if mesh else DB.ba_update_state_dist.calls,
-        ba_expected=n_ba,
+        ba_expected=n_ba, ba_applied=n_applied,
+        captured=list(eng.captured_stages) if graph else [],
+        replays=sum(p.replays for p in programs.values()), replays_expected=n_captured,
+        capture_s={s: (p.warmup_s, p.capture_s) for s, p in programs.items()
+                   if p.warmup_s is not None},
+        is_kf=np.array([bool(o.is_keyframe) for o in outs]),
         ba_rejected=int(outs[-1].ba_rejected_total), per_frame_max=max(per_frame), est=est,
         frame_ms=1e3 * np.diff([t0] + stamps), finite=finite,
         ate=metrics.ate_rmse(est, gt) if finite else float("inf"),
@@ -486,6 +539,100 @@ def _drive(cfg, frames, gt, mesh=None):
         tracking_ok=int(sum(bool(o.tracking_ok) for o in outs)),
         keyframes=int(sum(bool(o.is_keyframe) for o in outs)),
         median_keypoints=float(np.median([int(o.n_keypoints) for o in outs])))
+
+
+STAGE_NAMES = {0: "first", 1: "init", 2: "tracking"}
+
+
+def _fmt_secs(pair):
+    """(warm-up s, capture s) of a captured program as text."""
+    return "not captured" if pair[0] is None else f"{pair[0]:.2f} / {pair[1]:.2f}"
+
+
+def _fmt_capture(capture_s):
+    """{stage: (warm-up s, capture s)} as text."""
+    return ", ".join(f"{STAGE_NAMES[k]} {_fmt_secs(v)}" for k, v in
+                     sorted(capture_s.items())) or "none"
+
+
+def _steady_ms(r):
+    """Median host ms per tracking frame, from the second tracking frame on
+    (the first frame of each stage holds its capture on the graph route)."""
+    return float(np.median(r["frame_ms"][r["init_frame"] + 1:]))
+
+
+def _compare_routes(turns, no_ba, no_ba_eager):
+    """Phase 4's graph runs against the eager runs of the same config in the
+    same call: the same init frame and keyframe decisions, pose distance
+    <= ROUTE_TOL on every frame (raises otherwise); fps and steady-state ms
+    per tracking frame of each. Returns the record."""
+    pairs = [(f"cfg4 graph turn {i} / eager turn {j}", g, e)
+             for i, g in enumerate(turns["graph"]) for j, e in enumerate(turns["eager"])]
+    pairs.append(("cfg3 graph / eager", no_ba, no_ba_eager))
+    worst = 0.0
+    for tag, g, e in pairs:
+        d = float(np.linalg.norm(g["est"][:, :3, 3] - e["est"][:, :3, 3], axis=-1).max())
+        worst = max(worst, d)
+        same_kf = bool(np.array_equal(g["is_kf"], e["is_kf"]))
+        print(f"4 routes, {tag}: init frame {g['init_frame']} / {e['init_frame']}, keyframe "
+              f"decisions equal {same_kf}, largest pose distance {d:.3e} (limit {ROUTE_TOL})",
+              flush=True)
+        if g["init_frame"] != e["init_frame"] or not same_kf or not d <= ROUTE_TOL:
+            raise AssertionError(f"4: the graph route parts from the eager step ({tag})")
+    fps = {"cfg4": {k: [r["fps"] for r in v] for k, v in turns.items()},
+           "cfg3": {"graph": [no_ba["fps"]], "eager": [no_ba_eager["fps"]]}}
+    steady = {"cfg4": {k: [_steady_ms(r) for r in v] for k, v in turns.items()},
+              "cfg3": {"graph": [_steady_ms(no_ba)], "eager": [_steady_ms(no_ba_eager)]}}
+    for c in ("cfg4", "cfg3"):
+        print(f"4 routes, {c}, {N_FRAMES} frames, in turns: fps graph "
+              f"{[round(v, 2) for v in fps[c]['graph']]}, eager "
+              f"{[round(v, 2) for v in fps[c]['eager']]}; host ms per tracking frame "
+              f"(median, steady) graph {[round(v, 2) for v in steady[c]['graph']]}, eager "
+              f"{[round(v, 2) for v in steady[c]['eager']]}", flush=True)
+    g = turns["graph"][0]
+    return dict(fps=fps, steady_ms=steady, max_pose_distance=worst,
+                capture_s={STAGE_NAMES[k]: v for k, v in g["capture_s"].items()},
+                replays=g["replays"], frames=g["frames"])
+
+
+def _eager_batched(kind, cfg, cam, sts, frames):
+    """The eager reference of ``run_sequences_batched`` / ``run_sequences_general``:
+    the vmapped body called step by step without capture, each step's draws
+    from the streams' keys and one readback of ``[stage, is_keyframe]``
+    picking the next keys. Returns (final states, StepOutput [N,B])."""
+    from monocular_visual_odometry_tpu_torch.models import vo as V
+
+    body, draw = ((V.tracking_batched_body, V.draw_batched) if kind == "tracking" else
+                  (V.general_batched_body, V.draw_general))
+    outs = []
+    for i in range(frames.shape[1]):
+        new, out = body(cfg, cam, sts, frames[:, i].float(), draw(cfg, sts.rng, "cuda"),
+                        height=H, width=W)
+        stage, is_kf = torch.stack([sts.stage, out.is_keyframe.to(sts.stage.dtype)]).cpu().tolist()
+        sts = new._replace(rng=V._next_keys(sts.rng, stage, is_kf))
+        outs.append(out)
+    return sts, V._stack_outputs(outs)
+
+
+def _against_eager(tag, kind, cfg, cam, sts, frames, outs):
+    """Runs :func:`_eager_batched` from ``sts`` over ``frames`` and holds the
+    graph route's ``outs`` to it: every stage, keyframe and tracking
+    decision equal, poses within ROUTE_TOL. Returns (wall s, largest pose
+    distance)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, want = _eager_batched(kind, cfg, cam, sts, frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = float((outs.T_w_c[..., :3, 3] - want.T_w_c[..., :3, 3]).norm(dim=-1).max())
+    same = all(torch.equal(getattr(outs, f), getattr(want, f))
+               for f in ("stage", "is_keyframe", "tracking_ok"))
+    print(f"{tag}: the eager body over the same steps: {wall:.2f} s; stages, keyframe and "
+          f"tracking decisions equal {same}, largest pose distance {d:.3e} (limit {ROUTE_TOL})",
+          flush=True)
+    if not same or not d <= ROUTE_TOL:
+        raise AssertionError(f"{tag}: the captured body parts from the eager body")
+    return wall, d
 
 
 def _device_kernels(prof):
@@ -502,14 +649,21 @@ def _device_kernels(prof):
 
 
 def _check_counts(name, cfg, r):
-    """The kernel launched once per ``match_features`` call, BA ran once per
-    tracking frame whose tracking held (the mesh route: ``ba_update_state_dist``
-    once per tracking frame, and the single-device BA never)."""
+    """The kernel launched once per ``match_features`` call (counted per
+    replay on the graph route), BA computed once per tracking frame on the
+    graph route (``ba_update_state``) and the mesh route
+    (``ba_update_state_dist``; the single-device BA never), once per
+    tracking frame whose tracking held on the eager route; the graph route
+    advanced by one replay per frame where its stages are captured."""
     if r["launches"] <= 0 or r["launches"] != r["match_calls"]:
         raise AssertionError(f"{name}: hamming_nn_top2 launched {r['launches']} times, "
                              f"expected {r['match_calls']} (one per match_features call)")
     fn, per = (("ba_update_state_dist", "tracking frame") if r["mesh"] else
+               ("ba_update_state", "tracking frame") if r["route"] == "graph" else
                ("ba_update_state", "tracking frame whose tracking held"))
+    if r["replays"] != r["replays_expected"]:
+        raise AssertionError(f"{name}: {r['replays']} graph replays, expected "
+                             f"{r['replays_expected']} (one per frame in a captured stage)")
     if r["ba_calls"] != r["ba_expected"] or (cfg.ba.enabled and r["ba_expected"] == 0):
         raise AssertionError(f"{name}: {fn} ran {r['ba_calls']} times, expected "
                              f"{r['ba_expected']} (one per {per})")
@@ -568,14 +722,16 @@ def _phase_4_readback(cfg, frames):
     """``add_frame``'s readback (phase 4, see the module docstring): after
     ``step`` returns, the StepOutput comes back with one wait; the old
     readback (one ``.cpu()`` per field) beside it, in turns, on the same
-    outputs."""
+    outputs. Then the graph route's whole ``add_frame`` (draws, copies in,
+    replay, readback) over the same frames: exactly one wait per frame.
+    Returns the graph route's waits per frame."""
     from monocular_visual_odometry_tpu_torch.models import state as S
     from monocular_visual_odometry_tpu_torch.models import vo as V
     from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
 
     readback = {"one wait": V.output_to_host,
                 "per field": lambda o: S.StepOutput(*(t.cpu() for t in o))}
-    rb_eng = VOEngine(cfg, H, W, seed=0, device="cuda")
+    rb_eng = _EagerEngine(cfg)
     for f in frames[:READBACK_FROM]:
         rb_eng.add_frame(f)
     rb_ms = {k: ([], []) for k in readback}  # ms first after the step, then second
@@ -608,6 +764,17 @@ def _phase_4_readback(cfg, frames):
     if waits["one wait"] != {1} or waits["per field"] != {n_cuda}:
         raise AssertionError(f"add_frame's readback waited {waits['one wait']} times per frame "
                              f"(expected 1; per field {waits['per field']})")
+    g_eng = VOEngine(cfg, H, W, seed=0, device="cuda")
+    for f in frames[:READBACK_FROM]:
+        g_eng.add_frame(f)
+    g_waits = [_sync_calls(lambda f=f: g_eng.add_frame(f))[1]
+               for f in frames[READBACK_FROM:READBACK_FROM + READBACK_FRAMES]]
+    print(f"readback, graph route: synchronizing calls per add_frame (frame upload, draws, "
+          f"copies in, replay, readback) over frames {READBACK_FROM}...: {g_waits}", flush=True)
+    if set(g_waits) != {1}:
+        raise AssertionError(f"the graph route's add_frame waited {g_waits} times per frame "
+                             f"(expected 1)")
+    return g_waits
 
 
 def _phase_4g(frames, gt, robust_seq, chain_seq, planar_seq, main, cfg):
@@ -1148,10 +1315,13 @@ def _phase_4f(frames, gt, main, run_path, cfg) -> int:
         raise AssertionError("4f: the CLI did not report the native frame loader")
     banners = _BANNER.findall(log)
     names = {"BLANK": S.STAGE_BLANK, "INIT": S.STAGE_INITIALIZING, "TRACK": S.STAGE_TRACKING}
-    prev, n_match, n_ba = S.STAGE_BLANK, 0, 0
+    # the CLI's engine is the graph route: a tracking frame runs two matches
+    # (tracking, the keyframe update) and BA, both applied by selects
+    prev, n_match, n_ba, n_applied = S.STAGE_BLANK, 0, 0, 0
     for _, stage, kf, ok in banners:
-        n_match += {S.STAGE_BLANK: 0, S.STAGE_INITIALIZING: 1}.get(prev, 1 + (kf == "KF"))
-        n_ba += int(cfg.ba.enabled and prev == S.STAGE_TRACKING and ok == "ok")
+        n_match += {S.STAGE_BLANK: 0, S.STAGE_INITIALIZING: 1}.get(prev, 2)
+        n_ba += int(cfg.ba.enabled and prev == S.STAGE_TRACKING)
+        n_applied += int(cfg.ba.enabled and prev == S.STAGE_TRACKING and ok == "ok")
         prev = names[stage]
     n_fail = sum(ok != "ok" for *_, ok in banners)
     est = vio.read_trajectory(cli_dir / "cam_traj.txt")
@@ -1163,8 +1333,8 @@ def _phase_4f(frames, gt, main, run_path, cfg) -> int:
           f"({100 * share:.2f}%), drift_final {report['drift_final']:.4f}, "
           f"{report['map_points']} map points, {report['keyframes']} keyframes; matcher "
           f"launches {launches} (match_features calls from the banners {n_match}), "
-          f"ba_update_state calls {ba_calls} (tracking frames with tracking_ok {n_ba})",
-          flush=True)
+          f"ba_update_state calls {ba_calls} (tracking frames {n_ba}; BA applied on the "
+          f"{n_applied} with tracking_ok)", flush=True)
     if len(banners) != N_FRAMES or est.shape != (N_FRAMES, 4, 4):
         raise AssertionError(f"4f: {len(banners)} banners and {len(est)} rows, expected "
                              f"{N_FRAMES}")
@@ -1361,9 +1531,15 @@ def _phase_4i(cfg, batch_seqs, single, rates):
                         stage=np.array([int(o.stage) for o in r["outs"]]),
                         ate=metrics.ate_rmse(est, gt)))
     worst_single_ate = max(r["ate"] for r in ref)
-    # one throw-away step: one-time set-up (batched solvers) off the clock
-    V.run_sequences_general(cfg, cam, fresh(GENERAL_SIZES[-1]), frames[:, :1], height=H,
-                            width=W)
+    # one throw-away step per B: one-time set-up (batched solvers) and each
+    # B's capture off the clock
+    capture_b = {}
+    for nb in GENERAL_SIZES:
+        V.run_sequences_general(cfg, cam, fresh(nb), frames[:nb, :1], height=H, width=W)
+        prog = V._batched_program("general", cfg, cam, nb, H, W, torch.device("cuda"))
+        capture_b[nb] = (prog.warmup_s, prog.capture_s)
+    print(f"4i: warm-up / capture seconds of the general body per B: "
+          + ", ".join(f"B={nb} {_fmt_secs(v)}" for nb, v in capture_b.items()), flush=True)
     runs = {}
     for nb in GENERAL_SIZES:
         sts = fresh(nb)
@@ -1371,7 +1547,10 @@ def _phase_4i(cfg, batch_seqs, single, rates):
         HM.hamming_nn_top2.launches = 0
         BA.ba_update_state.calls = 0
         t0 = time.perf_counter()
+        prog = V._batched_program("general", cfg, cam, nb, H, W, frames.device)
+        replays = prog.replays
         final, outs = V.run_sequences_general(cfg, cam, sts, frames[:nb], height=H, width=W)
+        replays = prog.replays - replays
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, ba_calls = HM.hamming_nn_top2.launches, BA.ba_update_state.calls
@@ -1384,6 +1563,7 @@ def _phase_4i(cfg, batch_seqs, single, rates):
                     if (is_kf[:, b] != ref[b]["is_kf"]).any() else None for b in range(nb)]
         init = [int(np.argmax(stage[:, b] == S.STAGE_TRACKING)) for b in range(nb)]
         r = dict(wall_s=wall, fps=nb * n / wall, ms_per_step=1e3 * wall / n, launches=launches,
+                 capture_s=capture_b[nb],
                  ba_calls=ba_calls, n_fail=(~ok).sum(0).tolist(),
                  stage=final.stage.cpu().tolist(), init=init,
                  ate=[metrics.ate_rmse(poses[:, b], batch_seqs[b][1]) for b in range(nb)])
@@ -1392,13 +1572,15 @@ def _phase_4i(cfg, batch_seqs, single, rates):
               f"({r['ms_per_step']:.1f} ms per step; in this call 4e's tracking-only B="
               f"{BATCH_SIZES[-1]} {rates['tracking']:.2f} fps, single-stream one after "
               f"another {rates['single']:.2f} fps); matcher launches {launches}, "
-              f"ba_update_state calls {ba_calls}; init frame {init} (single-stream "
+              f"ba_update_state calls {ba_calls}, graph replays {replays}; init frame {init} (single-stream "
               f"{[int(np.argmax(q['stage'] == S.STAGE_TRACKING)) for q in ref[:nb]]}); "
               f"tracking failures {r['n_fail']}, final stages {r['stage']}, ATE "
               f"{[round(a, 4) for a in r['ate']]} (single-stream "
               f"{[round(q['ate'], 4) for q in ref[:nb]]}); first step whose keyframe decision "
               f"differs {kf_split}, largest pose distance "
               f"{[float(f'{d.max():.3g}') for d in dist]}", flush=True)
+        if replays != n:
+            raise AssertionError(f"4i B={nb}: {replays} graph replays in {n} steps")
         if launches != 3 * n:
             raise AssertionError(f"4i B={nb}: {launches} matcher launches, expected {3 * n} "
                                  f"(init, tracking and keyframe update, per step)")
@@ -1423,6 +1605,11 @@ def _phase_4i(cfg, batch_seqs, single, rates):
                                      f"within max(0.02, half) of its single-stream ATE {q:.4f} "
                                      f"nor below the worst single-stream ATE "
                                      f"{worst_single_ate:.4f}")
+        wall_e, _ = _against_eager(f"4i B={nb}", "general", cfg, cam, sts, frames[:nb], outs)
+        r.update(eager_fps=nb * n / wall_e, eager_ms_per_step=1e3 * wall_e / n)
+        print(f"4i B={nb}: graph {r['fps']:.2f} fps ({r['ms_per_step']:.1f} ms per step) against "
+              f"the eager body {r['eager_fps']:.2f} fps ({r['eager_ms_per_step']:.1f} ms per step)",
+              flush=True)
 
     # device kernels per general step and the busy share (profiler, device
     # activity only: the host ops' events of ~18,000 kernels a step take
@@ -1430,24 +1617,29 @@ def _phase_4i(cfg, batch_seqs, single, rates):
     # stream whatever its stage)
     print(f"4i: runs done at {time.perf_counter() - t_phase:.1f} s", flush=True)
     for nb in GENERAL_SIZES:
-        sts = fresh(nb)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(GENERAL_PROFILE_STEPS):
-                sts, _ = V.step_general_batched(cfg, cam, sts, frames[:nb, i], height=H, width=W)
+        for route in ("graph", "eager"):
+            run = (V.run_sequences_general if route == "graph" else
+                   lambda c, cm, s_, f, height, width: _eager_batched("general", c, cm, s_, f))
+            sts = fresh(nb)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        ks = _device_kernels(prof)
-        busy = sum(ms for _, ms, _ in ks)
-        n_k = sum(c for _, _, c in ks)
-        runs[nb].update(kernels_per_step=n_k / GENERAL_PROFILE_STEPS,
-                        busy_ms_per_step=busy / GENERAL_PROFILE_STEPS, busy_share=busy / wall_ms)
-        print(f"4i profile B={nb}: {GENERAL_PROFILE_STEPS} general steps, wall {wall_ms:.1f} ms "
-              f"under the profiler, device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%), "
-              f"{n_k / GENERAL_PROFILE_STEPS:.0f} device kernels per step", flush=True)
-        for name, ms, count in ks[:4]:
-            print(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}", flush=True)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run(cfg, cam, sts, frames[:nb, :GENERAL_PROFILE_STEPS], height=H, width=W)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            ks = _device_kernels(prof)
+            busy = sum(ms for _, ms, _ in ks)
+            n_k = sum(c for _, _, c in ks)
+            key = "" if route == "graph" else "eager_"
+            runs[nb].update({f"{key}kernels_per_step": n_k / GENERAL_PROFILE_STEPS,
+                             f"{key}busy_ms_per_step": busy / GENERAL_PROFILE_STEPS,
+                             f"{key}busy_share": busy / wall_ms})
+            print(f"4i profile B={nb}, {route}: {GENERAL_PROFILE_STEPS} general steps, wall "
+                  f"{wall_ms:.1f} ms under the profiler, device busy {busy:.1f} ms "
+                  f"({100 * busy / wall_ms:.1f}%), {n_k / GENERAL_PROFILE_STEPS:.0f} device "
+                  f"kernels per step", flush=True)
+            for name, ms, count in ks[:4]:
+                print(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}", flush=True)
     ratio = runs[GENERAL_SIZES[-1]]["kernels_per_step"] / runs[1]["kernels_per_step"]
     print(f"4i: device kernels per general step, B={GENERAL_SIZES[-1]} against B=1: "
           f"{ratio:.3f}x (limit {KERNELS_PER_STEP_RATIO}x)", flush=True)
@@ -1774,10 +1966,10 @@ def main() -> int:
             warm.add_frame(f)
     torch.cuda.synchronize()
 
-    def run_path(name, c, n):
+    def run_path(name, c, n, route="graph"):
         """:func:`_drive` over the first n frames of phase 4's sequence, held
         to the main path's budgets."""
-        r = _drive(c, frames[:n], gt[:n])
+        r = _drive(c, frames[:n], gt[:n], route=route)
         if not np.isfinite(r["est"]).all():
             raise AssertionError(f"{name}: non-finite pose in the trajectory")
         est = r["est"]
@@ -1789,8 +1981,12 @@ def main() -> int:
               f"{EARLY_FRAMES} frames {early_ate:.4f} on {early_len:.3f}, "
               f"{100 * early_ate / early_len:.2f}%), kernel launches {r['launches']}, "
               f"match_features calls {r['match_calls']} (max {r['per_frame_max']} per frame), "
-              f"ba_update_state calls {r['ba_calls']} (tracking frames with tracking_ok "
-              f"{r['ba_expected']}), ba_rejected_total {r['ba_rejected']}", flush=True)
+              f"ba_update_state calls {r['ba_calls']} (expected {r['ba_expected']}: BA computed "
+              f"on every tracking frame on the graph route, on those with tracking_ok on the "
+              f"eager one), BA applied on {r['ba_applied']} (tracking frames with tracking_ok), "
+              f"ba_rejected_total {r['ba_rejected']}; route {route}: captured stages "
+              f"{r['captured']}, {r['replays']} graph replays, warm-up / capture seconds per "
+              f"stage {_fmt_capture(r['capture_s'])}", flush=True)
         if r["stage"] != S.STAGE_TRACKING:
             raise AssertionError(f"{name}: the VO never reached tracking")
         if r["n_fail"] > 5:
@@ -1802,14 +1998,23 @@ def main() -> int:
         return r
 
     elapsed("phase 4, main path")
-    main = run_path("main path (default config, BA on)", cfg, N_FRAMES)
-    no_ba = run_path("4a BA off (cfg3)", cfg_no_ba, N_FRAMES)
+    # the graph route (VOEngine: one replay and one readback per frame) and
+    # the eager host-branch step, in turns: cfg4 graph, eager, eager, graph;
+    # cfg3 graph, eager
+    turns = {}
+    for route in ("graph", "eager", "eager", "graph"):
+        turns.setdefault(route, []).append(run_path(
+            f"main path (default config, BA on), {route} route", cfg, N_FRAMES, route))
+    main, eager = turns["graph"][0], turns["eager"][0]
+    no_ba = run_path("4a BA off (cfg3), graph route", cfg_no_ba, N_FRAMES)
+    no_ba_eager = run_path("4a BA off (cfg3), eager route", cfg_no_ba, N_FRAMES, "eager")
+    routes = _compare_routes(turns, no_ba, no_ba_eager)
+    per_ba = 1e3 * (main["wall_s"] - no_ba["wall_s"]) / max(main["ba_calls"], 1)
     print(f"4a: in this call, BA on {main['fps']:.2f} fps against BA off {no_ba['fps']:.2f} "
-          f"fps: {1e3 * (main['wall_s'] - no_ba['wall_s']) / max(main['ba_calls'], 1):.2f} ms "
-          f"more per BA call", flush=True)
+          f"fps (graph route): {per_ba:.2f} ms more per BA call", flush=True)
 
     elapsed("phase 4, readback")
-    _phase_4_readback(cfg, frames)
+    graph_waits = _phase_4_readback(cfg, frames)
 
     elapsed("phase 4b")
     # ---- 4b. where a tracking frame's time goes (profiler window) ----------
@@ -1817,30 +2022,46 @@ def main() -> int:
 
     device_kernels = _device_kernels
 
-    prof_eng = VOEngine(cfg, H, W, seed=0, device="cuda")
-    for f in frames[:PROFILE_FROM]:
-        prof_eng.add_frame(f)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for f in frames[PROFILE_FROM:PROFILE_FROM + PROFILE_FRAMES]:
-            prof_eng.add_frame(f)
+    # the graph route (replays) and the eager step over the same frames, each
+    # engine warmed up to frame PROFILE_FROM; device activity only (the host
+    # ops' events of the eager frames take minutes to list)
+    profile = {}
+    for route in ("graph", "eager"):
+        eng = VOEngine(cfg, H, W, seed=0, device="cuda") if route == "graph" else _EagerEngine(cfg)
+        for f in frames[:PROFILE_FROM]:
+            eng.add_frame(f)
         torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels_by_time = device_kernels(prof)
-    busy_ms = sum(ms for _, ms, _ in kernels_by_time)
-    n_kernels = sum(c for _, _, c in kernels_by_time)
-    print(f"profile: {PROFILE_FRAMES} tracking frames ({PROFILE_FROM}..."
-          f"{PROFILE_FROM + PROFILE_FRAMES - 1}, BA on), wall {prof_wall_ms:.1f} ms under the "
-          f"profiler, device busy {busy_ms:.1f} ms ({100 * busy_ms / prof_wall_ms:.1f}%), "
-          f"{n_kernels} device kernels ({n_kernels / PROFILE_FRAMES:.0f} per frame)", flush=True)
-    for name, ms, count in kernels_by_time[:8]:
-        print(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}", flush=True)
-    ham_ms = sum(ms for n, ms, _ in kernels_by_time if "hamming_nn_top2" in n)
-    ham_n = sum(c for n, _, c in kernels_by_time if "hamming_nn_top2" in n)
-    print(f"profile: hamming_nn_top2 {ham_ms:.3f} ms over {ham_n} launches "
-          f"({ham_ms / max(ham_n, 1):.4f} ms each, {100 * ham_ms / max(busy_ms, 1e-9):.2f}% "
-          f"of device busy time)", flush=True)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for f in frames[PROFILE_FROM:PROFILE_FROM + PROFILE_FRAMES]:
+                eng.add_frame(f)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels_by_time = device_kernels(prof)
+        busy_ms = sum(ms for _, ms, _ in kernels_by_time)
+        n_kernels = sum(c for _, _, c in kernels_by_time)
+        ham_ms = sum(ms for n, ms, _ in kernels_by_time if "hamming_nn_top2" in n)
+        ham_n = sum(c for n, _, c in kernels_by_time if "hamming_nn_top2" in n)
+        profile[route] = dict(wall_ms=prof_wall_ms, busy_ms=busy_ms, kernels=n_kernels,
+                              kernels_per_frame=n_kernels / PROFILE_FRAMES,
+                              busy_share=busy_ms / prof_wall_ms, hamming_ms=ham_ms,
+                              hamming_launches=ham_n)
+        print(f"profile, {route} route: {PROFILE_FRAMES} tracking frames ({PROFILE_FROM}..."
+              f"{PROFILE_FROM + PROFILE_FRAMES - 1}, BA on), wall {prof_wall_ms:.1f} ms under the "
+              f"profiler, device busy {busy_ms:.1f} ms ({100 * busy_ms / prof_wall_ms:.1f}%), "
+              f"{n_kernels} device kernels ({n_kernels / PROFILE_FRAMES:.0f} per frame)",
+              flush=True)
+        for name, ms, count in kernels_by_time[:8]:
+            print(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}", flush=True)
+        print(f"profile, {route} route: hamming_nn_top2 {ham_ms:.3f} ms over {ham_n} launches "
+              f"({ham_ms / max(ham_n, 1):.4f} ms each, {100 * ham_ms / max(busy_ms, 1e-9):.2f}% "
+              f"of device busy time)", flush=True)
+        if route == "graph":
+            prof_eng = eng
+            if ham_n != 2 * PROFILE_FRAMES:
+                raise AssertionError(f"4b: the replayed frames' profile shows {ham_n} "
+                                     f"hamming_nn_top2 kernels, expected {2 * PROFILE_FRAMES}")
+    ham_ms, ham_n = profile["graph"]["hamming_ms"], profile["graph"]["hamming_launches"]
 
     elapsed("phase 4c")
     # ---- 4c. one ba_update_state on the state after frame PROFILE_FROM+PROFILE_FRAMES
@@ -1871,14 +2092,18 @@ def main() -> int:
         BA.ba_update_state(cfg, prof_eng.cam, st)
     ba_busy = sum(ms for _, ms, _ in ba_kernels)
     ba_n = sum(c for _, _, c in ba_kernels)
-    share = ba_ms * main["ba_calls"] / (1e3 * main["wall_s"])
+    # an eager call's time (host issue included) against the eager route's
+    # wall time; its device time against the graph route's, which replays it
+    share = ba_ms * eager["ba_calls"] / (1e3 * eager["wall_s"])
+    share_graph = ba_busy * main["ba_calls"] / (1e3 * main["wall_s"])
     print(f"4c: ba_update_state after frame {PROFILE_FROM + PROFILE_FRAMES}: ran under "
           f"set_sync_debug_mode('error') without a sync; card against CPU max abs diff "
           f"{ba_err:.3e} (tolerance {BA_TOL}); {ba_ms:.3f} ms per call (CUDA events over 20 "
           f"calls, host included; host clock {ba_wall_ms:.3f} ms), {ops.n} aten ops "
           f"dispatched and {ba_n} device kernels per call, device busy {ba_busy:.3f} "
-          f"ms per call; x {main['ba_calls']} calls = {100 * share:.1f}% of the main path's "
-          f"wall time", flush=True)
+          f"ms per call; x {eager['ba_calls']} calls = {100 * share:.1f}% of the eager route's "
+          f"wall time; device busy x {main['ba_calls']} calls = {100 * share_graph:.1f}% of the "
+          f"graph route's", flush=True)
     if not ba_err <= BA_TOL:
         raise AssertionError(f"ba_update_state on the card differs from the CPU by {ba_err}")
 
@@ -1929,9 +2154,16 @@ def main() -> int:
 
     elapsed("phase 4e, batched runs")
     frames_b = torch.from_numpy(np.stack([seq[BATCH_WARM:] for seq, _ in batch_seqs])).cuda()
-    # one throw-away batched step: one-time set-up (batched solvers) off the clock
-    V.run_sequences_batched(cfg, cam, S.stack_states(warm[:1]), frames_b[:1, :1],
-                            height=H, width=W)
+    # one throw-away batched step per B: one-time set-up (batched solvers) and
+    # each B's capture off the clock
+    capture_b = {}
+    for nb in BATCH_SIZES:
+        V.run_sequences_batched(cfg, cam, S.stack_states(warm[:nb]), frames_b[:nb, :1],
+                                height=H, width=W)
+        prog = V._batched_program("tracking", cfg, cam, nb, H, W, torch.device("cuda"))
+        capture_b[nb] = (prog.warmup_s, prog.capture_s)
+    print(f"4e: warm-up / capture seconds of the batched body per B: "
+          + ", ".join(f"B={nb} {_fmt_secs(v)}" for nb, v in capture_b.items()), flush=True)
     batched = {}
     for nb in BATCH_SIZES:
         sts = S.stack_states(warm[:nb])
@@ -1939,7 +2171,10 @@ def main() -> int:
         HM.hamming_nn_top2.launches = 0
         BA.ba_update_state.calls = 0
         t0 = time.perf_counter()
+        prog = V._batched_program("tracking", cfg, cam, nb, H, W, frames_b.device)
+        replays = prog.replays
         final, outs = V.run_sequences_batched(cfg, cam, sts, frames_b[:nb], height=H, width=W)
+        replays = prog.replays - replays
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, ba_calls = HM.hamming_nn_top2.launches, BA.ba_update_state.calls
@@ -1953,6 +2188,7 @@ def main() -> int:
         kf_split = [int(np.argmax(is_kf[:, b] != single[b]["is_kf"]))
                     if (is_kf[:, b] != single[b]["is_kf"]).any() else None for b in range(nb)]
         r = dict(batch=nb, wall_s=wall, fps=nb * n_steps / wall, ms_per_step=1e3 * wall / n_steps,
+                 capture_s=capture_b[nb],
                  launches=launches, ba_calls=ba_calls, n_fail=(~ok).sum(0).tolist(),
                  stage=stages, ate=[metrics.ate_rmse(poses[:, b], batch_seqs[b][1][BATCH_WARM:])
                                     for b in range(nb)],
@@ -1962,13 +2198,16 @@ def main() -> int:
         print(f"4e batched B={nb}: {n_steps} steps in {wall:.2f} s = {r['fps']:.2f} fps aggregate "
               f"({r['ms_per_step']:.1f} ms per batched step; single-stream in this call: sum "
               f"{single_fps_sum:.2f} fps, one after another {single_fps_seq:.2f} fps); matcher "
-              f"launches {launches}, ba_update_state calls {ba_calls}; tracking failures "
+              f"launches {launches}, ba_update_state calls {ba_calls}, graph replays {replays}; "
+              f"tracking failures "
               f"{r['n_fail']}, final stages {stages}, ATE {[round(a, 4) for a in r['ate']]} "
               f"(single-stream {[round(s_['ate'], 4) for s_ in single[:nb]]}); against the "
               f"single-stream run: first-step pose distance "
               f"{[float(f'{d:.3g}') for d in r['first_step_dist']]}, first step whose keyframe "
               f"decision differs {kf_split}, largest pose distance "
               f"{[float(f'{d:.3g}') for d in r['max_dist']]}", flush=True)
+        if replays != n_steps:
+            raise AssertionError(f"4e B={nb}: {replays} graph replays in {n_steps} steps")
         if launches != 2 * n_steps:
             raise AssertionError(f"4e B={nb}: {launches} matcher launches, expected "
                                  f"{2 * n_steps} (tracking and keyframe update, per step)")
@@ -2000,30 +2239,39 @@ def main() -> int:
                                      f"within max(0.02, half) of its single-stream ATE "
                                      f"{ref:.4f} nor below the worst single-stream ATE "
                                      f"{worst_single_ate:.4f}")
+        if nb in BATCH_PROFILED:  # the eager body beside the graph, in turns
+            wall_e, _ = _against_eager(f"4e B={nb}", "tracking", cfg, cam, sts, frames_b[:nb], outs)
+            r.update(eager_fps=nb * n_steps / wall_e, eager_ms_per_step=1e3 * wall_e / n_steps)
+            print(f"4e B={nb}: graph {r['fps']:.2f} fps ({r['ms_per_step']:.1f} ms per step) "
+                  f"against the eager body {r['eager_fps']:.2f} fps "
+                  f"({r['eager_ms_per_step']:.1f} ms per step)", flush=True)
 
     elapsed("phase 4e, profile")
     # device kernels per batched step and the busy share (profiler)
     for nb in BATCH_PROFILED:
-        sts = S.stack_states(warm[:nb])
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for i in range(BATCH_PROFILE_STEPS):
-                sts, _ = V.step_tracking_batched(cfg, cam, sts, frames_b[:nb, i], height=H,
-                                                 width=W)
+        for route in ("graph", "eager"):
+            sts = S.stack_states(warm[:nb])
+            run = (V.run_sequences_batched if route == "graph" else
+                   lambda c, cm, s_, f, height, width: _eager_batched("tracking", c, cm, s_, f))
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        ks = device_kernels(prof)
-        busy = sum(ms for _, ms, _ in ks)
-        n_k = sum(c for _, _, c in ks)
-        batched[nb].update(kernels_per_step=n_k / BATCH_PROFILE_STEPS,
-                           busy_ms_per_step=busy / BATCH_PROFILE_STEPS,
-                           busy_share=busy / wall_ms)
-        print(f"4e profile B={nb}: {BATCH_PROFILE_STEPS} batched steps, wall {wall_ms:.1f} ms "
-              f"under the profiler, device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%), "
-              f"{n_k / BATCH_PROFILE_STEPS:.0f} device kernels per batched step", flush=True)
-        for name, ms, count in ks[:4]:
-            print(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}", flush=True)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run(cfg, cam, sts, frames_b[:nb, :BATCH_PROFILE_STEPS], height=H, width=W)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            ks = device_kernels(prof)
+            busy = sum(ms for _, ms, _ in ks)
+            n_k = sum(c for _, _, c in ks)
+            key = "" if route == "graph" else "eager_"
+            batched[nb].update({f"{key}kernels_per_step": n_k / BATCH_PROFILE_STEPS,
+                                f"{key}busy_ms_per_step": busy / BATCH_PROFILE_STEPS,
+                                f"{key}busy_share": busy / wall_ms})
+            print(f"4e profile B={nb}, {route}: {BATCH_PROFILE_STEPS} batched steps, wall "
+                  f"{wall_ms:.1f} ms under the profiler (device activity only), device busy "
+                  f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), {n_k / BATCH_PROFILE_STEPS:.0f} "
+                  f"device kernels per batched step", flush=True)
+            for name, ms, count in ks[:4]:
+                print(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}", flush=True)
     ratio = batched[BATCH_SIZES[-1]]["kernels_per_step"] / batched[1]["kernels_per_step"]
     print(f"4e: device kernels per batched step, B={BATCH_SIZES[-1]} against B=1: {ratio:.3f}x "
           f"(limit {KERNELS_PER_STEP_RATIO}x)", flush=True)
@@ -2045,6 +2293,13 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"4e: the vmapped body of a B={BATCH_SIZES[-1]} step ran under "
           f"set_sync_debug_mode('error') without a sync", flush=True)
+    _, step_waits = _sync_calls(lambda: V.step_tracking_batched(cfg, cam, sts, imgs, height=H,
+                                                                width=W, draws=draws))
+    print(f"4e: one graph-route B={BATCH_SIZES[-1]} step (copies in, replay, the readback of "
+          f"[stage, is_keyframe], the returned copies): {step_waits} synchronizing call(s)",
+          flush=True)
+    if step_waits != 1:
+        raise AssertionError(f"4e: a graph-route batched step waited {step_waits} times")
 
     elapsed("phase 4e, card against CPU")
     # one B=2 step on the card against a CPU copy fed the same draws
@@ -2126,6 +2381,18 @@ def main() -> int:
         "general_steps": BATCH_FRAMES,
         "general_fps": {str(nb): r["fps"] for nb, r in general.items()},
         "single_stream_fps_sum": single_fps_sum,
+        "graph_route": dict(
+            routes, waits_per_frame=graph_waits,
+            profile={k: {f: v for f, v in r.items() if f != "hamming_ms"}
+                     for k, r in profile.items()},
+            batched={str(nb): {k: r.get(k) for k in (
+                "fps", "eager_fps", "ms_per_step", "eager_ms_per_step", "kernels_per_step",
+                "eager_kernels_per_step", "busy_share", "eager_busy_share", "capture_s")}
+                for nb, r in batched.items()},
+            general={str(nb): {k: r.get(k) for k in (
+                "fps", "eager_fps", "ms_per_step", "eager_ms_per_step", "kernels_per_step",
+                "eager_kernels_per_step", "busy_share", "eager_busy_share", "capture_s")}
+                for nb, r in general.items()}),
         "card": card,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

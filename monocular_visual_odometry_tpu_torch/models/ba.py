@@ -25,6 +25,7 @@ from monocular_visual_odometry_tpu_torch.models import state as S
 from monocular_visual_odometry_tpu_torch.ops import lie
 from monocular_visual_odometry_tpu_torch.ops import precision  # noqa: F401  (TF32 off)
 from monocular_visual_odometry_tpu_torch.ops.camera import Camera
+from monocular_visual_odometry_tpu_torch.ops.consts import take as _take
 from monocular_visual_odometry_tpu_torch.utils.config import VOConfig
 
 
@@ -38,11 +39,6 @@ class BAProblem(NamedTuple):
     pts: torch.Tensor        # [M,3] landmark positions
     pt_used: torch.Tensor    # [M] bool, observed by some window frame
     frame_valid: torch.Tensor  # [W] bool
-
-
-def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """``x[i]`` for a 0-d index tensor, without reading it back."""
-    return x.index_select(0, i.reshape(1).to(torch.int64))[0]
 
 
 def _used(pid: torch.Tensor, valid: torch.Tensor, m: int) -> torch.Tensor:

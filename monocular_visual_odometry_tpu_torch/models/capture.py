@@ -1,0 +1,198 @@
+"""Captured step programs: the port's counterpart of ``jax.jit``'s compiled
+executable.
+
+The JAX package runs a frame as one compiled program (``step_fused``), and
+a batched step likewise. On a card the counterpart is a CUDA graph: the
+launches of one call of a function with no host branch, captured once and
+replayed with no Python between the kernels. :class:`CapturedStep` holds
+such a program with static buffers for its inputs:
+
+- ``fn(state, *args) -> (new_state, *outputs)``: ``state`` is a record of
+  tensors (a ``VOState`` without its key), ``args`` more records or tensors
+  (the frame, the RANSAC draws). Its first result has the structure of
+  ``state``: it is copied back into the state buffers, so the next call can
+  take the returned state as it is.
+- Each call copies its inputs into the buffers (a buffer handed back as its
+  own input is not copied), then, on a CUDA device, replays the graph: the
+  first call warms ``fn`` up on a side stream and captures it, and a
+  failed capture or replay raises (there is no eager fallback). On the CPU,
+  or where the caller asks for no graph (``graph=False``: a program that
+  waits on the card, as the five-point init does), the same object calls
+  ``fn`` eagerly on the same buffers.
+- Inside the program, every output that shares memory with an input buffer
+  is cloned first, and the new state is copied back into the state buffers
+  last: a replay never reads a buffer it has already written, and no output
+  changes when the buffers do.
+- **Lifetime.** The returned state is the state buffers and the returned
+  outputs are the program's output buffers: both stay valid until the next
+  call of the same object, which overwrites them. Clone what must outlive it.
+- **Memory.** Each graph has its own memory pool (``torch.cuda.graph``'s
+  default): the stage programs of one engine replay in any order, which a
+  shared pool allows only in capture order.
+- **Counters.** ``hamming_nn_top2.launches`` and ``ba_update_state.calls``
+  count in Python, so a replay would not move them. The capture records
+  what one call adds to each and each replay adds it; the warm-up and the
+  capture itself are set-up and leave them as they were.
+
+Nothing is captured or built when this module is imported.
+"""
+
+from __future__ import annotations
+
+import gc
+import time
+from typing import Callable
+
+import torch
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+
+from monocular_visual_odometry_tpu_torch.models import ba
+from monocular_visual_odometry_tpu_torch.ops import consts, features
+from monocular_visual_odometry_tpu_torch.ops.cuda import hamming
+
+# the Python-side counters a replay moves: name -> (function, attribute)
+COUNTERS = {"hamming_nn_top2": (hamming.hamming_nn_top2, "launches"),
+            "ba_update_state": (ba.ba_update_state, "calls")}
+# caches of device tensors the programs read: an entry made during a capture
+# would land in the graph's pool, an evicted one would free memory a graph
+# still reads; both are unbounded and filled by the warm-up
+_CACHES = (consts._cached, features._atlas_constants)
+
+
+def _counts() -> dict:
+    return {k: getattr(f, a) for k, (f, a) in COUNTERS.items()}
+
+
+def _add_counts(delta: dict) -> None:
+    for k, (f, a) in COUNTERS.items():
+        setattr(f, a, getattr(f, a) + delta[k])
+
+
+class CapturedStep:
+    """``fn`` as a captured program with static input buffers (see the module
+    docstring). ``graph``: capture on a CUDA device (False runs ``fn``
+    eagerly on the buffers there too). Attributes: ``calls``, ``replays``,
+    ``per_call`` (what one call adds to each counter), ``warmup_s`` and
+    ``capture_s`` (seconds of the first call's warm-up and capture)."""
+
+    def __init__(self, fn: Callable, *, graph: bool = True):
+        self.fn = fn
+        self.graph = graph
+        self.calls = self.replays = 0
+        self.per_call: dict = {}
+        self.warmup_s = self.capture_s = None
+        self._spec = None      # the inputs' structure
+        self._bufs = None      # input buffers, flat (None where the input is None)
+        self._n_state = 0      # the first _n_state buffers are the state's
+        self._outs = None      # the captured program's outputs
+        self._cuda_graph = None
+
+    # -- buffers ------------------------------------------------------------
+
+    def _load(self, inputs) -> None:
+        leaves, spec = tree_flatten(inputs)
+        if self._bufs is None:
+            self._spec = spec
+            self._n_state = len(tree_flatten(inputs[0])[0])
+            self._bufs = [None if t is None else t.clone() for t in leaves]
+            return
+        if spec != self._spec:
+            raise ValueError(f"CapturedStep: the inputs' structure changed:\n{spec}\n"
+                             f"captured with\n{self._spec}")
+        for buf, t in zip(self._bufs, leaves):
+            if t is buf:
+                continue
+            if (buf is None) != (t is None) or (t is not None and (
+                    t.shape != buf.shape or t.dtype != buf.dtype or t.device != buf.device)):
+                raise ValueError(f"CapturedStep: an input changed shape, dtype or device "
+                                 f"({None if t is None else (t.shape, t.dtype, t.device)}; "
+                                 f"buffer {None if buf is None else (buf.shape, buf.dtype)})")
+            if t is not None:
+                buf.copy_(t)
+
+    def _inputs(self):
+        return tree_unflatten(self._bufs, self._spec)
+
+    # -- the program ----------------------------------------------------------
+
+    def _body(self):
+        """``fn`` on the buffers; outputs that share memory with an input
+        buffer cloned; the new state copied into the state buffers last.
+        Returns the outputs (``fn``'s results after the state)."""
+        st, *args = self._inputs()
+        new, *outs = self.fn(st, *args)
+        taken = {t.untyped_storage().data_ptr() for t in self._bufs if t is not None}
+        shares = lambda t: t is not None and t.untyped_storage().data_ptr() in taken
+        state_bufs = self._bufs[:self._n_state]
+        new_leaves, new_spec = tree_flatten(new)
+        if new_spec != tree_flatten(st)[1]:
+            raise ValueError("CapturedStep: fn's new state has another structure than its "
+                             "input state")
+        copies = []
+        for buf, t in zip(state_bufs, new_leaves):
+            if t is buf:
+                continue
+            if (t is None) != (buf is None) or t.shape != buf.shape or t.dtype != buf.dtype:
+                raise ValueError("CapturedStep: fn's new state changes a field's shape or dtype")
+            copies.append((buf, t.clone() if shares(t) else t))
+        outs = tree_map(lambda t: t.clone() if shares(t) else t, outs)
+        for buf, t in copies:
+            buf.copy_(t)
+        return outs
+
+    def _capture(self) -> None:
+        before = _counts()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            st, *args = self._inputs()
+            self.fn(st, *args)  # warm-up: libraries, constants, the kernel's set-up
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        warm = _counts()
+        sizes = [c.cache_info().currsize for c in _CACHES]
+        graph = torch.cuda.CUDAGraph()
+        # Python's cycle collector must not run inside the capture: a graph
+        # it destroys there (an engine gone out of use) frees memory, which a
+        # capture does not permit, and the capture fails. thread_local:
+        # another thread (the CLI's frame loader) may use the CUDA API.
+        gc.collect()
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outs = self._body()
+        finally:
+            if was_enabled:
+                gc.enable()
+        torch.cuda.synchronize()
+        after = _counts()
+        if [c.cache_info().currsize for c in _CACHES] != sizes:
+            raise RuntimeError("CapturedStep: a cached device constant was created during the "
+                               "capture (the warm-up must create every one)")
+        for k, (f, a) in COUNTERS.items():
+            setattr(f, a, before[k])
+        self.per_call = {k: after[k] - warm[k] for k in COUNTERS}
+        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+        self._cuda_graph, self._outs = graph, outs
+
+    def __call__(self, state, *args):
+        """One step: returns ``(new_state, *outputs)``, both valid until the
+        next call of this object."""
+        self._load((state, *args))
+        self.calls += 1
+        if self.graph and self._bufs[0].device.type == "cuda":
+            if self._cuda_graph is None:
+                self._capture()
+            self._cuda_graph.replay()
+            self.replays += 1
+            _add_counts(self.per_call)
+            outs = self._outs
+        else:
+            before = _counts()
+            outs = self._body()
+            after = _counts()
+            self.per_call = {k: after[k] - before[k] for k in COUNTERS}
+        return (self._inputs()[0], *outs)

@@ -17,7 +17,19 @@ then the keyframe update, which sees the corrected pose. With a ``mesh``
 (``parallel/dist_ba.py``) on every tracking frame and is applied by a
 select, as in JAX's mesh route.
 
-The multi-stream modes are instead JAX's form: B streams advance by one
+JAX's one program per frame is :class:`VOEngine`'s route (``fused=True``):
+three stage programs, each branch-free with its RANSAC draws made on the
+host, held as ``models/capture.py::CapturedStep``s: on a card each is a CUDA
+graph, so a frame is one replay and one readback (the packed
+``StepOutput``), whose ``stage`` picks the next frame's program and whose
+``is_keyframe`` the next key. The tracking program (:func:`_track_frame`)
+computes BA and the keyframe update on every tracking frame and applies them
+by selects, as JAX's batched step does (JAX's ``step_fused``: ``lax.cond``).
+:func:`run_sequence` goes through the same programs; :func:`step` stays the
+eager host-branch step (the reference, and the mesh route, whose
+collectives are not captured).
+
+The multi-stream modes are JAX's form too: B streams advance by one
 frame in one ``torch.func.vmap`` of a per-stream body with no host branch.
 :func:`step_tracking_batched` takes streams that all track: BA and the
 keyframe update run unconditionally and are applied by per-stream selects
@@ -26,7 +38,8 @@ stage (JAX's ``vmap(run_sequence)``): the first-frame, init and tracking
 branches all run for every stream and its stage selects, as ``lax.switch``
 does under vmap. Their random draws are made on the host from each
 stream's key before the body, and one readback after it picks each
-stream's next key.
+stream's next key. The body is a ``CapturedStep`` too (one replay per step),
+cached by kind, B, config, camera, frame size and device.
 """
 
 from __future__ import annotations
@@ -40,8 +53,10 @@ from torch.utils._pytree import tree_map
 
 from monocular_visual_odometry_tpu_torch.models import ba
 from monocular_visual_odometry_tpu_torch.models import state as S
+from monocular_visual_odometry_tpu_torch.models.capture import CapturedStep
 from monocular_visual_odometry_tpu_torch.ops import fivepoint, lie, matching, pnp, twoview
 from monocular_visual_odometry_tpu_torch.ops.camera import Camera, cam2pixel, in_frame
+from monocular_visual_odometry_tpu_torch.ops.consts import take
 from monocular_visual_odometry_tpu_torch.ops.features import FrameFeatures, features_from_config
 from monocular_visual_odometry_tpu_torch.ops.ransac import split_key, uniforms
 from monocular_visual_odometry_tpu_torch.parallel import dist_ba
@@ -54,7 +69,7 @@ def _masked_median(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Median (lower middle) over masked entries; inf if none."""
     s = torch.sort(torch.where(mask, vals, torch.full_like(vals, float("inf")))).values
     n = torch.sum(mask)
-    return s[torch.clamp(torch.div(n - 1, 2, rounding_mode="floor"), min=0)]
+    return take(s, torch.clamp(torch.div(n - 1, 2, rounding_mode="floor"), min=0))
 
 
 def _angle_filter(angles: torch.Tensor, mask: torch.Tensor, cfg: VOConfig) -> torch.Tensor:
@@ -169,7 +184,8 @@ def step_first(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor, *,
     new = S.push_keyframe(new, eye)
     out = S.StepOutput(
         T_w_c=eye, stage=new.stage, n_keypoints=feats.n_valid,
-        n_matches=_i32(0, dev), n_inliers=_i32(0, dev),
+        # int64 as in the other stages: run_sequence preallocates one dtype a field
+        n_matches=torch.zeros((), dtype=torch.int64, device=dev), n_inliers=_i32(0, dev),
         is_keyframe=_flag(True, dev), tracking_ok=_flag(True, dev),
         used_homography=_flag(False, dev), n_map_points=new.map.n_valid,
         kpts=feats.kpts, kpt_valid=feats.valid,
@@ -360,7 +376,7 @@ def step_track(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
         n_map_points=new_map.n_valid,
         kpts=feats.kpts, kpt_valid=feats.valid, kpt_inlier=kpt_inlier,
         ba_rejected_total=st.ba_rejected,
-        n_candidates=torch.sum(candidates.to(torch.int32)),
+        n_candidates=torch.sum(candidates, dtype=torch.int32),
     )
     return new, out, feats, curr_mp
 
@@ -446,8 +462,11 @@ def keyframe_update(cfg: VOConfig, cam: Camera, st: S.VOState,
 
 def step(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
          *, height: int, width: int, mesh=None):
-    """One frame through the stage its state is in (the counterpart of the
-    JAX ``step_fused``). Returns (new state, StepOutput).
+    """One frame through the stage its state is in, eagerly: the host reads
+    the stage, the tracking gate and the keyframe decision back and runs
+    only the branches they pick (JAX's ``step_fused`` selects with
+    ``lax.cond``). The reference of the captured route (:class:`VOEngine`,
+    :func:`run_sequence`), and the mesh route. Returns (new state, StepOutput).
 
     ``mesh`` (a ``parallel.mesh.PointsMesh``): the windowed BA runs sharded
     over its ranks (``parallel.dist_ba``), honouring ``cfg.ba.fix_map_points``
@@ -485,16 +504,35 @@ def _frames_on(frames, device) -> torch.Tensor:
 
 def run_sequence(cfg: VOConfig, cam: Camera, st: S.VOState, frames, *,
                  height: int, width: int, mesh=None):
-    """:func:`step` over a [N,H,W] frame stack (``mesh``: the sharded BA, see
-    :func:`step`). Returns (final state, StepOutput with a leading [N] on
-    every field, on the state's device)."""
+    """A [N,H,W] frame stack (moved to the device once) through the stage
+    programs of :class:`StagePrograms` (made for this call; on a card one
+    graph replay per frame), each frame's ``StepOutput`` written into a
+    preallocated [N] output on the device; each frame reads back its stage
+    and keyframe flag (one small copy), which pick the next frame's program
+    and key. ``mesh``: :func:`step` eagerly instead, with the sharded BA.
+    Returns (final state, StepOutput with a leading [N] on every field, on
+    the state's device)."""
     frames = _frames_on(frames, st.T_w_c.device)
-    outs = []
-    for img in frames:
-        st, out = step(cfg, cam, st, img.to(torch.float32), height=height, width=width,
-                       mesh=mesh)
-        outs.append(out)
-    return st, _stack_outputs(outs)
+    if mesh is not None:
+        outs = []
+        for img in frames:
+            st, out = step(cfg, cam, st, img.to(torch.float32), height=height, width=width,
+                           mesh=mesh)
+            outs.append(out)
+        return st, _stack_outputs(outs)
+    programs = StagePrograms(cfg, cam, height, width, st.T_w_c.device)
+    stage, key, outs = int(st.stage), int(st.rng), None
+    for i, img in enumerate(frames):
+        st, out = programs(st, img.to(torch.float32), stage, key)
+        if outs is None:
+            outs = S.StepOutput(*(torch.empty((len(frames),) + t.shape, dtype=t.dtype,
+                                              device=t.device) for t in out))
+        for o, t in zip(outs, out):
+            o[i].copy_(t)
+        stage_after, is_kf = _bytes_to_host([out.stage, out.is_keyframe])
+        key = _advance_key(key, stage, bool(is_kf))
+        st, stage = st._replace(rng=torch.tensor(key, dtype=torch.int64)), int(stage_after)
+    return _snapshot(st), outs
 
 
 # ---------------------------------------------------------------------------
@@ -552,12 +590,9 @@ def draw_batched(cfg: VOConfig, rng: torch.Tensor, device) -> BatchedDraws:
     return BatchedDraws(pnp_u, epi_u)
 
 
-def draw_general(cfg: VOConfig, rng: torch.Tensor, device) -> BatchedDraws:
-    """:func:`draw_batched`'s draws and the init attempt's, each stream's
-    from its key ``rng`` [B] (CPU int64), on ``device``: the init's key is
-    the first split's second child (tracking's PnP key), split into the E
-    and H halves; the five-point E-RANSAC splits its half again into the
-    sample draw and the basis remix."""
+def _draw_init(cfg: VOConfig, rng: torch.Tensor, device) -> BatchedDraws:
+    """The init attempt's draws (the ``init_*`` fields; see
+    :func:`draw_general`)."""
     K, n = cfg.orb.max_keypoints, cfg.ransac.n_hypotheses
     halves = [split_key(k[1]) for k in _split_keys(rng)]
     init_G = None
@@ -569,7 +604,17 @@ def draw_general(cfg: VOConfig, rng: torch.Tensor, device) -> BatchedDraws:
     else:
         init_e = torch.stack([uniforms(k_e, (n, K), device) for k_e, _ in halves])
     init_h = torch.stack([uniforms(k_h, (n, K), device) for _, k_h in halves])
-    return draw_batched(cfg, rng, device)._replace(init_e=init_e, init_h=init_h, init_G=init_G)
+    return BatchedDraws(None, None, init_e, init_h, init_G)
+
+
+def draw_general(cfg: VOConfig, rng: torch.Tensor, device) -> BatchedDraws:
+    """:func:`draw_batched`'s draws and the init attempt's, each stream's
+    from its key ``rng`` [B] (CPU int64), on ``device``: the init's key is
+    the first split's second child (tracking's PnP key), split into the E
+    and H halves; the five-point E-RANSAC splits its half again into the
+    sample draw and the basis remix."""
+    d = draw_batched(cfg, rng, device)
+    return _draw_init(cfg, rng, device)._replace(pnp=d.pnp, epi=d.epi)
 
 
 def _vmap_dims(record):
@@ -637,59 +682,163 @@ def general_batched_body(cfg: VOConfig, cam: Camera, sts: S.VOState, imgs: torch
     return _vmapped(one, sts, imgs, draws)
 
 
+# ---------------------------------------------------------------------------
+# captured programs: the single-stream stages and the batched bodies
+# ---------------------------------------------------------------------------
+
+
+def _snapshot(record):
+    """A copy of a record's tensors (None fields kept): a captured program's
+    results stay valid only until its next call."""
+    return tree_map(lambda t: None if t is None else t.clone(), record)
+
+
+def _advance_key(key: int, stage: int, is_kf: bool) -> int:
+    """A single stream's key after a frame in ``stage`` (:func:`_next_keys`)."""
+    return int(_next_keys(torch.tensor([key], dtype=torch.int64), [stage], [int(is_kf)])[0])
+
+
+def _stage_draws(cfg: VOConfig, stage: int, key: int, device) -> BatchedDraws:
+    """One stream's draws for a frame in ``stage``, from its key as
+    :func:`step` draws them (no batch dim; empty for a first frame)."""
+    rng = torch.tensor([key], dtype=torch.int64)
+    if stage == S.STAGE_BLANK:
+        return BatchedDraws(None, None)
+    d = (_draw_init if stage == S.STAGE_INITIALIZING else draw_batched)(cfg, rng, device)
+    return BatchedDraws(*(None if t is None else t[0] for t in d))
+
+
+class StagePrograms:
+    """The single-stream step as three stage programs, each a
+    :class:`~monocular_visual_odometry_tpu_torch.models.capture.CapturedStep`
+    made at its first use: :func:`step_first`, :func:`step_init` and
+    :func:`_track_frame`, each branch-free with its draws made on the host.
+    On a card each is a CUDA graph, but the init's under the five-point
+    solver, whose ``eigh`` waits on the card: that one runs eagerly
+    (``captured_stages`` lists the stages that are graphs).
+
+    ``programs(st, img, stage, key)`` advances ``st`` (its key ``key`` and
+    stage ``stage`` held on the host) by one frame: returns (new state
+    without its key, StepOutput), both valid until the same stage's next
+    frame. ``out.stage`` is the new state's stage in every program; the
+    caller advances the key with ``out.is_keyframe`` (:func:`_advance_key`)."""
+
+    def __init__(self, cfg: VOConfig, cam: Camera, height: int, width: int, device):
+        self.cfg, self.cam, self.height, self.width = cfg, cam, height, width
+        self.device = torch.device(device)
+        on_card = self.device.type == "cuda"
+        self.captured_stages = tuple(
+            s for s in (S.STAGE_BLANK, S.STAGE_INITIALIZING, S.STAGE_TRACKING) if on_card
+            and not (s == S.STAGE_INITIALIZING and cfg.ransac.essential_minimal == "5pt"))
+        self.programs: dict[int, CapturedStep] = {}
+
+    def _fn(self, stage: int):
+        # the programs hold no reference to self: an engine's graphs are then
+        # freed with it, not later by the cycle collector
+        cfg, cam, height, width = self.cfg, self.cam, self.height, self.width
+        if stage == S.STAGE_BLANK:
+            return lambda st, img, d: step_first(cfg, cam, st, img)
+        if stage == S.STAGE_INITIALIZING:
+            return lambda st, img, d: step_init(cfg, cam, st, img, u_e=d.init_e, u_h=d.init_h,
+                                                G_e=d.init_G)
+        return lambda st, img, d: _track_frame(cfg, cam, st, img, d, height=height, width=width)
+
+    def __call__(self, st: S.VOState, img: torch.Tensor, stage: int, key: int):
+        prog = self.programs.get(stage)
+        if prog is None:
+            prog = self.programs[stage] = CapturedStep(
+                self._fn(stage), graph=stage in self.captured_stages)
+        return prog(st._replace(rng=None), img, _stage_draws(self.cfg, stage, key, self.device))
+
+
+_BATCHED: dict = {}  # (kind, B, cfg, cam, H, W, device) -> CapturedStep
+
+
+def _batched_program(kind: str, cfg: VOConfig, cam: Camera, b: int, height: int, width: int,
+                     device) -> CapturedStep:
+    """The batched body of ``kind`` ("tracking" or "general") as a
+    ``CapturedStep`` whose last output is ``[stage before, is_keyframe]``
+    [2,B] (the step's one readback); on a card a graph, but the general
+    body under the five-point solver (its init waits on the card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (kind, b, cfg, cam, height, width, str(device))
+    prog = _BATCHED.get(key)
+    if prog is None:
+        body = tracking_batched_body if kind == "tracking" else general_batched_body
+
+        def fn(sts, imgs, draws):
+            new, out = body(cfg, cam, sts, imgs, draws, height=height, width=width)
+            return new, out, torch.stack([sts.stage, out.is_keyframe.to(sts.stage.dtype)])
+
+        graph = not (kind == "general" and cfg.ransac.essential_minimal == "5pt")
+        prog = _BATCHED[key] = CapturedStep(fn, graph=graph)
+    return prog
+
+
+def _step_batched(kind, cfg, cam, sts, imgs, height, width, draws):
+    """One batched step through its captured program: (states, StepOutputs),
+    both valid until the program's next call."""
+    imgs = _frames_on(imgs, sts.T_w_c.device).to(torch.float32)
+    if draws is None:
+        draws = (draw_batched if kind == "tracking" else draw_general)(cfg, sts.rng, imgs.device)
+    prog = _batched_program(kind, cfg, cam, imgs.shape[0], height, width, imgs.device)
+    new, out, flags = prog(sts._replace(rng=None), imgs, draws)
+    stage, is_kf = flags.cpu().tolist()
+    if kind == "tracking" and any(s != S.STAGE_TRACKING for s in stage):
+        raise ValueError("step_tracking_batched: every stream must be tracking "
+                         f"(stage {S.STAGE_TRACKING}); stages {stage}")
+    return new._replace(rng=_next_keys(sts.rng, stage, is_kf)), out
+
+
 def step_tracking_batched(cfg: VOConfig, cam: Camera, sts: S.VOState, imgs, *,
                           height: int, width: int, draws: Optional[BatchedDraws] = None):
     """B tracking streams (:func:`models.state.stack_states`) advance by one
     frame each, ``imgs`` [B,H,W]: every kernel of the step is issued once
-    for all B streams. Each stream's draws come from its key as in
-    :func:`step` (``draws`` overrides them); one readback after the body
+    for all B streams, on a card as one replay of the captured
+    :func:`tracking_batched_body`. Each stream's draws come from its key as
+    in :func:`step` (``draws`` overrides them); one readback after the body
     (the step's only wait on the device) picks each stream's next key, the
     keyframe update's split kept only where ``is_keyframe``. Every stream
     must be in ``STAGE_TRACKING`` (checked in that readback): raises
     ValueError otherwise. Returns (states, StepOutputs), [B] leading."""
-    imgs = _frames_on(imgs, sts.T_w_c.device).to(torch.float32)
-    if draws is None:
-        draws = draw_batched(cfg, sts.rng, imgs.device)
-    new, out = tracking_batched_body(cfg, cam, sts, imgs, draws, height=height, width=width)
-    stage, is_kf = torch.stack([sts.stage, out.is_keyframe.to(sts.stage.dtype)]).cpu().tolist()
-    if any(s != S.STAGE_TRACKING for s in stage):
-        raise ValueError("step_tracking_batched: every stream must be tracking "
-                         f"(stage {S.STAGE_TRACKING}); stages {stage}")
-    return new._replace(rng=_next_keys(sts.rng, stage, is_kf)), out
+    return _snapshot(_step_batched("tracking", cfg, cam, sts, imgs, height, width, draws))
 
 
 def step_general_batched(cfg: VOConfig, cam: Camera, sts: S.VOState, imgs, *,
                          height: int, width: int, draws: Optional[BatchedDraws] = None):
     """B streams in any stage (:func:`models.state.stack_states`) advance by
     one frame each, ``imgs`` [B,H,W], through :func:`general_batched_body`:
-    every kernel of the step is issued once for all B streams. Each stream's
-    draws come from its key as in :func:`step` (:func:`draw_general`;
-    ``draws`` overrides them); one readback after the body, of the stages
-    before the step and ``is_keyframe``, picks each stream's next key.
-    Returns (states, StepOutputs), [B] leading."""
-    imgs = _frames_on(imgs, sts.T_w_c.device).to(torch.float32)
-    if draws is None:
-        draws = draw_general(cfg, sts.rng, imgs.device)
-    new, out = general_batched_body(cfg, cam, sts, imgs, draws, height=height, width=width)
-    stage, is_kf = torch.stack([sts.stage, out.is_keyframe.to(sts.stage.dtype)]).cpu().tolist()
-    return new._replace(rng=_next_keys(sts.rng, stage, is_kf)), out
+    every kernel of the step is launched once for all B streams, on a card as
+    one replay of the captured body. Each stream's draws come from its key
+    as in :func:`step` (:func:`draw_general`; ``draws`` overrides them); one
+    readback after the body, of the stages before the step and
+    ``is_keyframe``, picks each stream's next key. Returns (states,
+    StepOutputs), [B] leading."""
+    return _snapshot(_step_batched("general", cfg, cam, sts, imgs, height, width, draws))
 
 
-def _run_batched(step_fn, cfg, cam, sts, frames, height, width):
+def _run_batched(kind, cfg, cam, sts, frames, height, width):
     frames = _frames_on(frames, sts.T_w_c.device)
-    outs = []
-    for i in range(frames.shape[1]):
-        sts, out = step_fn(cfg, cam, sts, frames[:, i], height=height, width=width)
-        outs.append(out)
-    return sts, _stack_outputs(outs)
+    n, outs = frames.shape[1], None
+    for i in range(n):
+        sts, out = _step_batched(kind, cfg, cam, sts, frames[:, i], height, width, None)
+        if outs is None:
+            outs = S.StepOutput(*(torch.empty((n,) + t.shape, dtype=t.dtype, device=t.device)
+                                  for t in out))
+        for o, t in zip(outs, out):
+            o[i].copy_(t)
+    return _snapshot(sts), outs
 
 
 def run_sequences_batched(cfg: VOConfig, cam: Camera, sts: S.VOState, frames, *,
                           height: int, width: int):
     """:func:`step_tracking_batched` over [B,N,H,W] frame stacks (moved to the
-    device once). Returns (final states, StepOutput with [N,B] leading on
-    every field: scan-major, as the JAX function)."""
-    return _run_batched(step_tracking_batched, cfg, cam, sts, frames, height, width)
+    device once), each step's outputs written into a preallocated [N]
+    output. Returns (final states, StepOutput with [N,B] leading on every
+    field: scan-major, as the JAX function)."""
+    return _run_batched("tracking", cfg, cam, sts, frames, height, width)
 
 
 def run_sequences_general(cfg: VOConfig, cam: Camera, sts: S.VOState, frames, *,
@@ -699,19 +848,28 @@ def run_sequences_general(cfg: VOConfig, cam: Camera, sts: S.VOState, frames, *,
     ``init_state``s this is JAX's ``vmap(run_sequence)`` from
     ``vmap(init_state)``. Returns (final states, StepOutput with [N,B]
     leading on every field)."""
-    return _run_batched(step_general_batched, cfg, cam, sts, frames, height, width)
+    return _run_batched("general", cfg, cam, sts, frames, height, width)
 
 
 class VOEngine:
-    """Host driver: threads a VOState through :func:`step`, one frame at a
-    time, and hands each frame's StepOutput back on the host.
+    """The host side: threads a VOState through the step one frame at a time
+    and hands each frame's StepOutput back on the host.
 
-    ``fused=False`` takes JAX's staged debugging route instead
-    (:meth:`_add_frame_staged`); both give the same poses. ``mesh`` (a
-    ``parallel.mesh.PointsMesh``): the windowed BA runs sharded over its
-    ranks; every rank drives its own engine over the same frames.
+    ``fused=True`` (JAX's ``add_frame`` -> ``step_fused``): the frame goes
+    through the stage program of the stage the previous frame's readback
+    reported (:class:`StagePrograms`); on a card that is one graph replay
+    and one readback per frame, and ``captured_stages`` says which stages
+    are graphs (the five-point init is not). ``fused=False`` takes JAX's
+    staged debugging route instead (:meth:`_add_frame_staged`); both give
+    the same poses. ``mesh`` (a ``parallel.mesh.PointsMesh``): the fused
+    step runs eagerly (:func:`step`) with the windowed BA sharded over the
+    mesh's ranks; every rank drives its own engine over the same frames.
     ``cfg.orb.max_keypoints`` and ``cfg.map.max_map_points`` must divide by
-    the mesh size, and the route must be the fused one (ValueError)."""
+    the mesh size, and the route must be the fused one (ValueError).
+
+    ``state`` reads a copy of the engine's state on the captured route
+    (the stage programs' buffers change with the next frame); setting it
+    reads the new state's stage back once."""
 
     def __init__(self, cfg: VOConfig, height: int, width: int, seed: int = 0,
                  device="cuda", fused: bool = True, mesh=None):
@@ -730,17 +888,43 @@ class VOEngine:
         self.width = width
         self.cam = Camera.create(cfg.dataset.fx, cfg.dataset.fy,
                                  cfg.dataset.cx, cfg.dataset.cy)
+        self.stages = (StagePrograms(cfg, self.cam, height, width, self.device)
+                       if fused and mesh is None else None)
         self.state = S.init_state(cfg, seed, self.device)
+
+    @property
+    def captured_stages(self) -> tuple:
+        """The stages whose frames are graph replays (none off the card)."""
+        return () if self.stages is None else self.stages.captured_stages
+
+    @property
+    def state(self) -> S.VOState:
+        return self._state if self.stages is None else _snapshot(self._state)
+
+    @state.setter
+    def state(self, st: S.VOState) -> None:
+        self._state, self._stage = st, int(st.stage)
 
     def add_frame(self, img) -> S.StepOutput:
         """Process one grayscale image [H,W] (uint8 or float). Returns the
         StepOutput with every field on the CPU, read back with one wait."""
-        img = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(self.device)
+        img = torch.as_tensor(np.asarray(img), dtype=torch.float32)
+        # a pinned copy goes up without waiting on the stream
+        img = img.pin_memory().to(self.device, non_blocking=True) if self.device.type == "cuda" \
+            else img
         if not self.fused:
             return self._add_frame_staged(img)
-        self.state, out = step(self.cfg, self.cam, self.state, img,
-                               height=self.height, width=self.width, mesh=self.mesh)
-        return output_to_host(out)
+        if self.stages is None:
+            self._state, out = step(self.cfg, self.cam, self._state, img, height=self.height,
+                                    width=self.width, mesh=self.mesh)
+            return output_to_host(out)
+        key = int(self._state.rng)
+        new, out = self.stages(self._state, img, self._stage, key)
+        out = output_to_host(out)
+        key = _advance_key(key, self._stage, bool(out.is_keyframe))
+        self._state = new._replace(rng=torch.tensor(key, dtype=torch.int64))
+        self._stage = int(out.stage)
+        return out
 
     def _add_frame_staged(self, img: torch.Tensor) -> S.StepOutput:
         """The staged route (JAX's ``_add_frame_staged``): the stage entry
@@ -749,22 +933,22 @@ class VOEngine:
         keyframe update on the host; the pose, map count and BA rejections
         after them come back with one more."""
         cfg, cam = self.cfg, self.cam
-        stage = int(self.state.stage)
+        stage = int(self._state.stage)
         if stage == S.STAGE_BLANK:
-            self.state, out = step_first(cfg, cam, self.state, img)
+            self._state, out = step_first(cfg, cam, self._state, img)
             return output_to_host(out)
         if stage == S.STAGE_INITIALIZING:
-            self.state, out = step_init(cfg, cam, self.state, img)
+            self._state, out = step_init(cfg, cam, self._state, img)
             return output_to_host(out)
-        self.state, out, feats, curr_mp = step_track(cfg, cam, self.state, img,
-                                                     height=self.height, width=self.width)
+        self._state, out, feats, curr_mp = step_track(cfg, cam, self._state, img,
+                                                      height=self.height, width=self.width)
         out = output_to_host(out)
         if cfg.ba.enabled and bool(out.tracking_ok):
-            self.state = ba.ba_update_state(cfg, cam, self.state)
+            self._state = ba.ba_update_state(cfg, cam, self._state)
         if bool(out.is_keyframe):
-            self.state = keyframe_update(cfg, cam, self.state, feats, curr_mp,
-                                         height=self.height, width=self.width)
-        st = self.state
+            self._state = keyframe_update(cfg, cam, self._state, feats, curr_mp,
+                                          height=self.height, width=self.width)
+        st = self._state
         return output_to_host(out._replace(T_w_c=st.T_w_c, n_map_points=st.map.n_valid,
                                            ba_rejected_total=st.ba_rejected))
 

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from monocular_visual_odometry_tpu_torch.ops import lie
-from monocular_visual_odometry_tpu_torch.ops.consts import device_const
+from monocular_visual_odometry_tpu_torch.ops.consts import device_const, take
 from monocular_visual_odometry_tpu_torch.ops.fivepoint import five_point_essential
 from monocular_visual_odometry_tpu_torch.ops.ransac import (
     hartley_normalize,
@@ -98,8 +98,8 @@ def _consensus_refit(x1, x2, valid, hyps, msac, refit, min_support, cap, ok=None
     if ok is not None:
         scores = torch.where(ok, scores, torch.full_like(scores, float("inf")))
     best = torch.argmin(scores)
-    M_best, s_best = hyps[best], scores[best]
-    inl_cur = torch.stack([(d2[best] < cap) & valid, valid])
+    M_best, s_best = take(hyps, best), take(scores, best)
+    inl_cur = torch.stack([(take(d2, best) < cap) & valid, valid])
     for _ in range(4):
         n_sup = torch.sum(inl_cur, dim=-1)
         M_cur = refit(inl_cur.to(x1.dtype))
@@ -107,9 +107,9 @@ def _consensus_refit(x1, x2, valid, hyps, msac, refit, min_support, cap, ok=None
         s_cur = torch.where(n_sup >= min_support, s_cur, torch.full_like(s_cur, float("inf")))
         inl_cur = (d2r < cap) & valid[None]
         c_best = torch.argmin(s_cur)
-        better = s_cur[c_best] <= s_best
-        M_best = torch.where(better, M_cur[c_best], M_best)
-        s_best = torch.minimum(s_cur[c_best], s_best)
+        s_c = take(s_cur, c_best)
+        M_best = torch.where(s_c <= s_best, take(M_cur, c_best), M_best)
+        s_best = torch.minimum(s_c, s_best)
     return M_best
 
 
@@ -305,7 +305,7 @@ def recover_pose_from_E(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
     z1, z2 = depths_in_two_views(pts1, Ts)
     votes = torch.sum((z1 > 0) & (z2 > 0) & inliers, dim=-1)
     best = torch.argmax(votes)
-    return cand_R[best], cand_t[best], votes[best]
+    return take(cand_R, best), take(cand_t, best), take(votes, best)
 
 
 # ---------------------------------------------------------------------------

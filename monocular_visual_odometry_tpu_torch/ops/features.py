@@ -266,7 +266,7 @@ def _taps(A: np.ndarray):
     return j0, j1, w0, w1
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)  # never evicted: captured programs read these
 def _atlas_constants(height: int, width: int, n_levels: int, scale: float,
                      grid_size: int, device: str):
     """Device-resident atlas lookups: the inside-mask, the column->level

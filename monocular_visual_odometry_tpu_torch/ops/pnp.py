@@ -21,6 +21,7 @@ from monocular_visual_odometry_tpu_torch.ops.polynomial import (
     polish_quartic_roots,
     quartic_real_roots,
 )
+from monocular_visual_odometry_tpu_torch.ops.consts import take
 from monocular_visual_odometry_tpu_torch.ops.ransac import sample_minimal_sets
 
 _EPS = 1e-9
@@ -173,7 +174,7 @@ def solve_pnp_ransac(
                                  torch.full_like(err2, cap)), dim=-1)
     msac = torch.where(okh & torch.all(torch.isfinite(Ts.reshape(-1, 16)), dim=-1),
                        msac, torch.full_like(msac, float("inf")))
-    T_best = Ts[torch.argmin(msac)]
+    T_best = take(Ts, torch.argmin(msac))
 
     half = max(refine_iterations // 2, 3)
     err2b, zb = _reproj_err2_px(T_best, pts_w, uv, cam)

@@ -16,7 +16,7 @@ import torch
 from monocular_visual_odometry_tpu_torch.ops import epipolar as epi
 from monocular_visual_odometry_tpu_torch.ops import lie, scoring
 from monocular_visual_odometry_tpu_torch.ops.camera import Camera, pixel2cam_norm_plane
-from monocular_visual_odometry_tpu_torch.ops.consts import device_const
+from monocular_visual_odometry_tpu_torch.ops.consts import device_const, take
 from monocular_visual_odometry_tpu_torch.ops.ransac import split_key
 
 
@@ -85,8 +85,8 @@ def estimate_relative_pose(
         h_idx = torch.argmax(torch.where(h_ok, torch.abs(ns_h[:, 2]),
                                          torch.full_like(ns_h[:, 2], -1.0)))
         use_h = ratio_h & torch.any(valid4)
-        R = torch.where(use_h, Rs_h[h_idx], R_e)
-        t = torch.where(use_h, ts_h[h_idx], t_e)
+        R = torch.where(use_h, take(Rs_h, h_idx), R_e)
+        t = torch.where(use_h, take(ts_h, h_idx), t_e)
         best_h_idx = h_idx
     else:
         cand_R = torch.cat([R_e[None], Rs_h], dim=0)   # [5,3,3]
@@ -115,10 +115,10 @@ def estimate_relative_pose(
         near_h = ch <= torch.min(ch) * 1.05
         best_h = 1 + torch.argmax(torch.where(near_h, torch.abs(ns_h[:, 2]),
                                               torch.full_like(ch, -1.0)))
-        e_wins = costs[0] < 0.95 * costs[best_h]
+        e_wins = costs[0] < 0.95 * take(costs, best_h)
         best = torch.where(e_wins, torch.zeros_like(best_h), best_h)
-        R = Rs_ref[best]
-        t = ts_res[best]
+        R = take(Rs_ref, best)
+        t = take(ts_res, best)
         use_h = best > 0
         best_h_idx = torch.clamp(best - 1, min=0)
 
@@ -141,7 +141,7 @@ def estimate_relative_pose(
         used_homography=use_h, ratio_prefers_h=ratio_h,
         score_e=se.score, score_h=sh.score,
         E=e_model.model, H=h_model.model,
-        plane_normal=torch.where(use_h, ns_h[best_h_idx], torch.zeros_like(ns_h[0])),
+        plane_normal=torch.where(use_h, take(ns_h, best_h_idx), torch.zeros_like(ns_h[0])),
     )
 
 

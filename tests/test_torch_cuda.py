@@ -29,7 +29,10 @@ BA's scatter-adds are atomics on the card, so float32 sums differ from the
 CPU's in the last bits: poses agree to 1e-4, and with ``deterministic=True``
 (float64) to float32 rounding (rtol 1e-6). The five-point solver is compared
 in float64, as a solution set (see ``test_torch_fivepoint.py``). A state
-checkpoint saved on the card resumes there. The sharded BA
+checkpoint saved on the card resumes there. ``VOEngine``'s graph route (one
+replay of a captured stage program per frame) equals the eager ``step``
+over 12 frames, waits once per frame, and a replay runs the kernel; a
+program that reads a value back fails to capture and raises. The sharded BA
 (``parallel/dist_ba.py``) runs in a one-rank NCCL world against ``ba_solve``
 on the card, and once on the mesh route without a host sync.
 """
@@ -543,6 +546,87 @@ def test_add_frame_reads_the_output_back_with_one_wait(card):
     assert int(out.stage) == TS.STAGE_TRACKING
 
 
+# ---------------------------------------------------------------------------
+# the graph route: VOEngine's stage programs as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _graph_and_eager(cfg, frames):
+    """``VOEngine`` (one graph replay per frame) and the eager host-branch
+    ``step`` over the same frames: (engine, its outputs, step's outputs)."""
+    eng = TV.VOEngine(cfg, 480, 640, device="cuda")
+    got = [eng.add_frame(f) for f in frames]
+    st, want = TS.init_state(cfg, 0, "cuda"), []
+    for f in frames:
+        st, out = TV.step(cfg, eng.cam, st, torch.from_numpy(f).float().cuda(), height=480,
+                          width=640)
+        want.append(TV.output_to_host(out))
+    return eng, got, want
+
+
+@pytest.mark.cuda
+def test_graph_route_equals_eager_step(card):
+    """12 frames (init at frame 6, then tracking): every stage, keyframe and
+    tracking decision and count of the graph route equal the eager step's,
+    poses within 1e-4 (pose_distance); one replay per frame, the kernel's
+    launches counted per replay (2 per tracking frame, 1 per init attempt)
+    and BA once per tracking frame."""
+    cfg = VOConfig()
+    frames, _ = TSYN.render_sequence_arrays(12, seed=0, translation_step=0.05)
+    launches, calls = TH.hamming_nn_top2.launches, TB.ba_update_state.calls
+    eng, got, want = _graph_and_eager(cfg, frames)
+    stages = [TS.STAGE_BLANK] + [int(o.stage) for o in got[:-1]]
+    n_track = stages.count(TS.STAGE_TRACKING)
+    assert n_track >= 3 and eng.captured_stages == (0, 1, 2)
+    for g, w in zip(got, want):
+        for f in ("stage", "is_keyframe", "tracking_ok", "n_keypoints", "n_matches",
+                  "n_inliers", "n_map_points", "n_candidates"):
+            assert int(getattr(g, f)) == int(getattr(w, f)), f
+        assert float(TL.pose_distance(g.T_w_c, w.T_w_c)) <= 1e-4
+    progs = eng.stages.programs
+    assert sum(p.replays for p in progs.values()) == len(frames)
+    assert progs[TS.STAGE_TRACKING].per_call == {"hamming_nn_top2": 2, "ba_update_state": 1}
+    # the eager run added its own: 1 per init attempt, 1 + is_keyframe per
+    # tracking frame, BA where tracking held
+    eager_launches = sum({0: 0, 1: 1}.get(s, 1 + int(bool(o.is_keyframe)))
+                         for s, o in zip(stages, want))
+    eager_ba = sum(s == TS.STAGE_TRACKING and bool(o.tracking_ok) for s, o in zip(stages, want))
+    graph_launches = stages.count(TS.STAGE_INITIALIZING) + 2 * n_track
+    assert TH.hamming_nn_top2.launches - launches == graph_launches + eager_launches
+    assert TB.ba_update_state.calls - calls == n_track + eager_ba
+
+
+@pytest.mark.cuda
+def test_graph_route_waits_once_per_frame(card):
+    """After each stage's capture, a frame through ``add_frame`` (upload,
+    draws, copies in, replay, readback) waits on the stream once."""
+    cfg = VOConfig()
+    frames, _ = TSYN.render_sequence_arrays(12, seed=0, translation_step=0.05)
+    eng = TV.VOEngine(cfg, 480, 640, device="cuda")
+    for f in frames[:9]:
+        eng.add_frame(f)
+    waits = [_sync_warnings(lambda f=f: eng.add_frame(f))[1] for f in frames[9:]]
+    assert waits == [1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_a_replay_of_the_tracking_graph_runs_the_kernel(card):
+    """The profile of one replayed tracking frame shows ``hamming_nn_top2``
+    twice (tracking and the keyframe update)."""
+    cfg = VOConfig()
+    frames, _ = TSYN.render_sequence_arrays(10, seed=0, translation_step=0.05)
+    eng = TV.VOEngine(cfg, 480, 640, device="cuda")
+    for f in frames[:9]:
+        eng.add_frame(f)
+    assert eng.stages.programs[TS.STAGE_TRACKING].replays >= 1
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eng.add_frame(frames[9])
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("hamming_nn_top2" in n for n in names) == 2, len(names)
+
+
 @pytest.fixture
 def nccl_mesh(card, tmp_path):
     """A one-rank NCCL world over a file store, and its ``points`` mesh."""
@@ -605,3 +689,16 @@ def test_mesh_route_ba_never_waits_on_the_host(nccl_mesh, fix_map_points):
                                    atol=1e-4)
     torch.testing.assert_close(got.ring.poses.cpu(), want.ring.poses.cpu(), rtol=0, atol=1e-4)
     torch.testing.assert_close(got.map.pts.cpu(), want.map.pts.cpu(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(card):
+    """A program that reads a value back cannot be captured: the first call
+    raises, and there is no eager fallback. (Last in the file: a failed
+    capture can leave the CUDA context in an error state.)"""
+    from monocular_visual_odometry_tpu_torch.models.capture import CapturedStep
+
+    prog = CapturedStep(lambda st, x: (st * float(x.sum()), x))
+    with pytest.raises(RuntimeError):
+        prog(torch.ones(4, device="cuda"), torch.ones(4, device="cuda"))
+    torch.cuda.synchronize()

@@ -146,9 +146,23 @@ def test_both_packages_track_the_sequence(sequence, jax_run, torch_run):
 def test_both_packages_track_the_sequence_with_ba(sequence, jax_run_ba, torch_run_ba):
     outs, ba_calls = torch_run_ba
     _check_tracks(sequence[1], jax_run_ba[0], outs)
-    # BA runs once on every tracking frame whose tracking held
+    # the engine's tracking program computes BA on every tracking frame and
+    # applies it where tracking held
     tracked = [o for prev, o in zip(outs, outs[1:]) if int(prev.stage) == TS.STAGE_TRACKING]
-    assert ba_calls == sum(bool(o.tracking_ok) for o in tracked) > 0
+    assert ba_calls == len(tracked) > 0
+    assert sum(bool(o.tracking_ok) for o in tracked) > 0
+
+
+def test_captured_engine_beside_jax_fused_engine(sequence, jax_run_ba, torch_run_ba):
+    """The port's ``VOEngine(fused=True)`` (its stage programs; on the CPU
+    the same functions called eagerly) against JAX's ``VOEngine(fused=True)``
+    (``step_fused``), BA on: the same init frame, the ATE inside the band."""
+    outs, _ = torch_run_ba
+    j_outs = jax_run_ba[0]
+    first = lambda os_, s: next(i for i, o in enumerate(os_) if int(o.stage) == s)
+    assert first(outs, TS.STAGE_TRACKING) == first(j_outs, JS.STAGE_TRACKING)
+    ate_j, ate_t = _ate(j_outs, sequence[1]), _ate(outs, sequence[1])
+    assert ate_t < 0.10 and abs(ate_t - ate_j) <= max(0.02, 0.5 * ate_j), (ate_t, ate_j)
 
 
 def _step_from_carried(frames, run, ba):
