@@ -55,7 +55,19 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    4d. runs the five-point configuration (``essential_minimal="5pt"``, BA
    on) over the 150 frames with the checks of phase 4 (the 3% ATE budget is
    one of the whole path; each run also prints its ATE over the first 60
-   frames, which reads higher);
+   frames, which reads higher) on the graph route, whose every stage is a
+   graph (the init's ``eigh`` is the Jacobi of ``ops/lie.py`` there:
+   captured stages [0, 1, 2], one replay per frame), in turns with the eager
+   ``step`` (graph, eager, eager, graph: the same init frame, keyframe and
+   tracking decisions, pose distance <= 1e-4 on every frame); prints which
+   model won on each init frame; calls a captured init program once more
+   under ``set_sync_debug_mode("error")`` and profiles one replay (device
+   kernels and ms), and the Jacobi ``eigh`` per call at the solver's shapes
+   (64 9x9, 64x8 10x10); and on every init frame holds the card's
+   five-point E-RANSAC (captured) against the same call on a CPU copy
+   (LAPACK) with the same draws: inlier counts and the largest difference
+   in E up to sign, printed (the two bases are two charts of one solution
+   set, so a root one misses can change the winner);
    4e. the batched steady state (``run_sequences_batched``, one replay of the
    captured body per step; each B captured off the clock): eight 60-frame
    sequences (seeds 0-7), each warmed up single-stream over 15 frames, then
@@ -116,9 +128,15 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    4h. the mesh route (``parallel/``: BA sharded over the ranks of a process
    group, ``VOEngine(mesh=...)``): (a) a one-rank NCCL world over a file store
    in ``build/4h/``: the default config over phase 4's 150 frames with phase
-   4's budgets, matcher launches = ``match_features`` calls and
-   ``ba_update_state_dist`` calls = tracking frames, the largest pose distance
-   to phase 4's run and the fps beside it; (b) tests/test_dist_pipeline.py's
+   4's budgets on the stage programs (every stage a graph, the tracking
+   graph replaying the sharded BA's NCCL collectives: one replay per frame)
+   in turns with the eager ``step(mesh=...)`` (graph, eager, graph: the
+   same decisions, pose distance <= 1e-4), matcher launches =
+   ``match_features`` calls and ``ba_update_state_dist`` calls = tracking
+   frames on each, the same collectives (primitive and bytes) on every
+   tracking frame of every run and none elsewhere, one wait per
+   ``add_frame`` over 20 tracking frames, the largest pose distance to phase
+   4's run and the fps beside it; (b) tests/test_dist_pipeline.py's
    512-keypoint configuration over its 18 frames, landmarks fixed and joint,
    the mesh route against the single-device route with that test's gates; (c)
    two processes on the one card over gloo (NCCL refuses two ranks on one
@@ -134,7 +152,8 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    own started with (c), NCCL's collective timeout: a
    collective enqueued behind a kernel that holds the stream longer than the
    timeout is flagged by the watchdog when the timeout passes, and the
-   process ends with a non-zero code;
+   process ends with a non-zero code (eager collectives: the watchdog does
+   not track a collective replayed from a graph);
    4i. the general step (``run_sequences_general``: B streams in any stage in
    one vmapped step, one replay of the captured body per step, JAX's
    ``profile_throughput.py`` "general" protocol) over 4e's eight 60-frame
@@ -151,7 +170,11 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    attempt, tracking, tracking on a blank frame) whose body runs under
    ``set_sync_debug_mode("error")``, equal to ``step`` per stream (decisions,
    next keys, poses within 1e-3) and to the same step on a CPU copy fed the
-   same draws (4e's budgets);
+   same draws (4e's budgets); then the general step under the five-point
+   solver at B = 8 over the 60 frames from fresh states, its captured body
+   (3 matcher launches, 1 BA call and 1 replay per step, every stream
+   tracking) against the eager body over its first 20 steps (the same
+   decisions, poses within 1e-4), and 2 profiled steps (device kernels);
 5. prints one JSON line describing the kernels, then, as the last line, the
    device JSON.
 
@@ -219,6 +242,7 @@ KERNELS_PER_STEP_RATIO = 1.5  # B=8 device kernels per batched step, at most x B
 # eight sequences from fresh states keyed 0..B-1
 GENERAL_SIZES = (1, 8)
 GENERAL_PROFILE_STEPS = 2
+GENERAL_5PT_EAGER_STEPS = 20  # 4i under 5pt: the eager body over the first steps (init at 6)
 RENDER_CHUNK = 30        # frames per rendering job
 READBACK_FROM, READBACK_FRAMES = 40, 20  # phase 4: add_frame's readback, tracking frames
 # phase 4g, the paths the scene generators and camera tools open; each at the
@@ -445,38 +469,43 @@ def _batched_inputs(b, k1, k2, seed, *, alt=False, ragged=False):
 
 
 class _EagerEngine:
-    """The eager reference route: ``step`` (the host-branch step) one frame
-    at a time, its StepOutput read back as ``VOEngine`` reads it."""
+    """The eager reference route: ``step`` (the host-branch step; ``mesh``:
+    with the sharded BA) one frame at a time, its StepOutput read back as
+    ``VOEngine`` reads it."""
 
-    def __init__(self, cfg, seed=0):
+    def __init__(self, cfg, seed=0, mesh=None):
         from monocular_visual_odometry_tpu_torch.models import state as S
         from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
 
-        self.cfg, self.cam = cfg, VOEngine(cfg, H, W, device="cuda").cam
+        self.cfg, self.cam, self.mesh = cfg, VOEngine(cfg, H, W, device="cuda").cam, mesh
         self.state = S.init_state(cfg, seed, "cuda")
 
     def add_frame(self, img):
         from monocular_visual_odometry_tpu_torch.models import vo as V
 
         img = torch.as_tensor(np.asarray(img), dtype=torch.float32).to("cuda")
-        self.state, out = V.step(self.cfg, self.cam, self.state, img, height=H, width=W)
+        self.state, out = V.step(self.cfg, self.cam, self.state, img, height=H, width=W,
+                                 mesh=self.mesh)
         return V.output_to_host(out)
 
 
 def _drive(cfg, frames, gt, mesh=None, route="graph"):
     """Drive a fresh engine on the card over ``frames``, one ``add_frame`` per
     frame: ``route`` "graph" is ``VOEngine`` (the user's entry point: one
-    graph replay per frame; ``mesh``: the mesh route, eager, BA sharded),
-    "eager" the host-branch ``step`` (:class:`_EagerEngine`); the kernel and
-    BA counts are set to 0 just before and read just after. Returns the
-    run's record: trajectory, host ms per frame, fps, per-frame
-    diagnostics, the counts and what they should be (``match_features``
-    calls: the graph route's tracking frames run the keyframe update's match
-    every time; BA computed: every tracking frame on the graph and mesh
-    routes, tracking frames whose tracking held on the eager one; BA
-    applied: tracking frames whose tracking held), the graph route's
-    capture seconds per stage, Sim(3) ATE and end drift against ``gt`` (inf
-    where a pose is not finite)."""
+    graph replay per frame in a captured stage; ``mesh``: the mesh route, BA
+    sharded, its collectives replayed with the tracking graph under NCCL),
+    "eager" the host-branch ``step`` (:class:`_EagerEngine`, with the mesh's
+    sharded BA where one is given); the kernel and BA counts are set to 0
+    just before and read just after. Returns the run's record: trajectory,
+    host ms per frame, fps, per-frame diagnostics, the counts and what they
+    should be (``match_features`` calls: the graph route's tracking frames
+    run the keyframe update's match every time; BA computed: every tracking
+    frame on the graph route and on the eager mesh route, tracking frames
+    whose tracking held on the eager single-device one; BA applied: tracking
+    frames whose tracking held), the graph route's capture seconds per
+    stage, the collectives each frame recorded on the mesh (primitive,
+    bytes), Sim(3) ATE and end drift against ``gt`` (inf where a pose is not
+    finite)."""
     from monocular_visual_odometry_tpu_torch.models import ba as BA
     from monocular_visual_odometry_tpu_torch.models import state as S
     from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
@@ -484,9 +513,9 @@ def _drive(cfg, frames, gt, mesh=None, route="graph"):
     from monocular_visual_odometry_tpu_torch.parallel import dist_ba as DB
     from monocular_visual_odometry_tpu_torch.utils import metrics
 
-    eng = (_EagerEngine(cfg) if route == "eager" else
+    eng = (_EagerEngine(cfg, mesh=mesh) if route == "eager" else
            VOEngine(cfg, H, W, seed=0, device="cuda", mesh=mesh))
-    graph = route == "graph" and mesh is None
+    graph = route == "graph"
     torch.cuda.synchronize()
     HM.hamming_nn_top2.launches = 0
     BA.ba_update_state.calls = 0
@@ -494,16 +523,20 @@ def _drive(cfg, frames, gt, mesh=None, route="graph"):
     outs, n_fail, n_match, n_ba, n_applied, stage, per_frame = [], 0, 0, 0, 0, S.STAGE_BLANK, []
     n_captured = 0  # frames in a stage whose program is a graph
     stamps = []  # host clock after each frame (add_frame reads its output back)
+    records = []  # per frame, the collectives the mesh recorded
     t0 = time.perf_counter()
     for f in frames:
         before = HM.hamming_nn_top2.launches
+        n_rec = len(mesh.record) if mesh is not None else 0
         out = eng.add_frame(f)
+        if mesh is not None:
+            records.append([tuple(c) for c in mesh.record[n_rec:]])
         stamps.append(time.perf_counter())
         per_frame.append(HM.hamming_nn_top2.launches - before)
         n_match += {S.STAGE_BLANK: 0, S.STAGE_INITIALIZING: 1}.get(
             stage, 2 if graph else 1 + int(bool(out.is_keyframe)))
         tracked = cfg.ba.enabled and stage == S.STAGE_TRACKING
-        n_ba += int(tracked and (route == "graph" or bool(out.tracking_ok)))
+        n_ba += int(tracked and (graph or mesh is not None or bool(out.tracking_ok)))
         n_applied += int(tracked and bool(out.tracking_ok))
         n_captured += int(graph and stage in eng.captured_stages)
         stage = int(out.stage)
@@ -520,6 +553,7 @@ def _drive(cfg, frames, gt, mesh=None, route="graph"):
     programs = eng.stages.programs if graph else {}
     return dict(
         frames=n, wall_s=wall, fps=n / wall, stage=stage, n_fail=n_fail, route=route,
+        records=records,
         launches=HM.hamming_nn_top2.launches, match_calls=n_match, mesh=mesh is not None,
         ba_calls=DB.ba_update_state_dist.calls if mesh else BA.ba_update_state.calls,
         other_ba_calls=BA.ba_update_state.calls if mesh else DB.ba_update_state_dist.calls,
@@ -529,6 +563,7 @@ def _drive(cfg, frames, gt, mesh=None, route="graph"):
         capture_s={s: (p.warmup_s, p.capture_s) for s, p in programs.items()
                    if p.warmup_s is not None},
         is_kf=np.array([bool(o.is_keyframe) for o in outs]),
+        ok=np.array([bool(o.tracking_ok) for o in outs]), stages=stages,
         ba_rejected=int(outs[-1].ba_rejected_total), per_frame_max=max(per_frame), est=est,
         frame_ms=1e3 * np.diff([t0] + stamps), finite=finite,
         ate=metrics.ate_rmse(est, gt) if finite else float("inf"),
@@ -561,35 +596,39 @@ def _steady_ms(r):
     return float(np.median(r["frame_ms"][r["init_frame"] + 1:]))
 
 
-def _compare_routes(turns, no_ba, no_ba_eager):
-    """Phase 4's graph runs against the eager runs of the same config in the
-    same call: the same init frame and keyframe decisions, pose distance
-    <= ROUTE_TOL on every frame (raises otherwise); fps and steady-state ms
-    per tracking frame of each. Returns the record."""
-    pairs = [(f"cfg4 graph turn {i} / eager turn {j}", g, e)
-             for i, g in enumerate(turns["graph"]) for j, e in enumerate(turns["eager"])]
-    pairs.append(("cfg3 graph / eager", no_ba, no_ba_eager))
+def _compare_routes(prefix, configs):
+    """Graph runs against the eager runs of the same config in the same call
+    (``configs``: name -> {"graph": [runs], "eager": [runs]}): the same init
+    frame, keyframe and tracking decisions, pose distance <= ROUTE_TOL on
+    every frame (raises otherwise); fps and steady-state ms per tracking
+    frame of each. Returns the record."""
     worst = 0.0
-    for tag, g, e in pairs:
-        d = float(np.linalg.norm(g["est"][:, :3, 3] - e["est"][:, :3, 3], axis=-1).max())
-        worst = max(worst, d)
-        same_kf = bool(np.array_equal(g["is_kf"], e["is_kf"]))
-        print(f"4 routes, {tag}: init frame {g['init_frame']} / {e['init_frame']}, keyframe "
-              f"decisions equal {same_kf}, largest pose distance {d:.3e} (limit {ROUTE_TOL})",
-              flush=True)
-        if g["init_frame"] != e["init_frame"] or not same_kf or not d <= ROUTE_TOL:
-            raise AssertionError(f"4: the graph route parts from the eager step ({tag})")
-    fps = {"cfg4": {k: [r["fps"] for r in v] for k, v in turns.items()},
-           "cfg3": {"graph": [no_ba["fps"]], "eager": [no_ba_eager["fps"]]}}
-    steady = {"cfg4": {k: [_steady_ms(r) for r in v] for k, v in turns.items()},
-              "cfg3": {"graph": [_steady_ms(no_ba)], "eager": [_steady_ms(no_ba_eager)]}}
-    for c in ("cfg4", "cfg3"):
-        print(f"4 routes, {c}, {N_FRAMES} frames, in turns: fps graph "
-              f"{[round(v, 2) for v in fps[c]['graph']]}, eager "
+    for name, turns in configs.items():
+        one = len(turns["graph"]) == 1 and len(turns["eager"]) == 1
+        for i, g in enumerate(turns["graph"]):
+            for j, e in enumerate(turns["eager"]):
+                tag = f"{name} graph / eager" if one else f"{name} graph turn {i} / eager turn {j}"
+                d = float(np.linalg.norm(g["est"][:, :3, 3] - e["est"][:, :3, 3], axis=-1).max())
+                worst = max(worst, d)
+                same_kf = bool(np.array_equal(g["is_kf"], e["is_kf"]))
+                same_ok = bool(np.array_equal(g["ok"], e["ok"]))
+                print(f"{prefix} routes, {tag}: init frame {g['init_frame']} / {e['init_frame']}, "
+                      f"keyframe decisions equal {same_kf}, tracking decisions equal {same_ok}, "
+                      f"largest pose distance {d:.3e} (limit {ROUTE_TOL})", flush=True)
+                if (g["init_frame"] != e["init_frame"] or not same_kf or not same_ok
+                        or not d <= ROUTE_TOL):
+                    raise AssertionError(f"{prefix}: the graph route parts from the eager step "
+                                         f"({tag})")
+    fps = {c: {k: [r["fps"] for r in v] for k, v in t.items()} for c, t in configs.items()}
+    steady = {c: {k: [_steady_ms(r) for r in v] for k, v in t.items()}
+              for c, t in configs.items()}
+    for c in configs:
+        print(f"{prefix} routes, {c}, {configs[c]['graph'][0]['frames']} frames, in turns: fps "
+              f"graph {[round(v, 2) for v in fps[c]['graph']]}, eager "
               f"{[round(v, 2) for v in fps[c]['eager']]}; host ms per tracking frame "
               f"(median, steady) graph {[round(v, 2) for v in steady[c]['graph']]}, eager "
               f"{[round(v, 2) for v in steady[c]['eager']]}", flush=True)
-    g = turns["graph"][0]
+    g = next(iter(configs.values()))["graph"][0]
     return dict(fps=fps, steady_ms=steady, max_pose_distance=worst,
                 capture_s={STAGE_NAMES[k]: v for k, v in g["capture_s"].items()},
                 replays=g["replays"], frames=g["frames"])
@@ -775,6 +814,133 @@ def _phase_4_readback(cfg, frames):
         raise AssertionError(f"the graph route's add_frame waited {g_waits} times per frame "
                              f"(expected 1)")
     return g_waits
+
+
+def _init_matches(cfg, cam, st, img):
+    """The init attempt's correspondences on the state's device, as
+    ``step_init`` makes them: normalized-plane x1, x2 [K,2], valid [K]."""
+    from monocular_visual_odometry_tpu_torch.models import vo as V
+    from monocular_visual_odometry_tpu_torch.ops.features import features_from_config
+    from monocular_visual_odometry_tpu_torch.ops.twoview import pixel2cam_norm_plane
+
+    feats = features_from_config(img, cfg.orb)
+    ref = st.ref_feats
+    m = V._match(cfg, ref.desc, feats.desc, ref.valid, feats.valid, ref.kpts, feats.kpts,
+                 cfg.match.max_pixel_dist_init)
+    return (pixel2cam_norm_plane(ref.kpts[m.query_idx], cam),
+            pixel2cam_norm_plane(feats.kpts[m.train_idx], cam), m.valid)
+
+
+def _phase_4d_init(cfg5, frames, five):
+    """Phase 4d's look into the five-point init stage on the card: which
+    model won on each init frame of the graph run ``five``; the captured init
+    program called once more under ``set_sync_debug_mode("error")`` and its
+    kernels and device ms (profiled replay); the Jacobi ``eigh``'s device
+    kernels per call at the solver's shapes; on every init frame, the
+    card's E-RANSAC (Jacobi ``eigh``, captured) against the same call on a
+    CPU copy (LAPACK) with the same draws: inlier counts and the largest
+    difference in E up to sign. Returns the record."""
+    from monocular_visual_odometry_tpu_torch.models import state as S
+    from monocular_visual_odometry_tpu_torch.models import vo as V
+    from monocular_visual_odometry_tpu_torch.models.capture import CapturedStep
+    from monocular_visual_odometry_tpu_torch.ops import epipolar as EP
+    from monocular_visual_odometry_tpu_torch.ops import lie
+    from monocular_visual_odometry_tpu_torch.ops.twoview import _focal
+
+    stages_before = np.concatenate([[S.STAGE_BLANK], five["stages"][:-1]])
+    init_frames = [int(i) for i in np.flatnonzero(stages_before == S.STAGE_INITIALIZING)]
+    won = ["H" if five["used_homography"][i] else "E" for i in init_frames]
+    print(f"4d: init frames {init_frames[0]}..{init_frames[-1]} ({len(init_frames)}); the model "
+          f"that won on each: {''.join(won)} (E {won.count('E')}, H {won.count('H')}; the "
+          f"attempt at frame {init_frames[-1]} initialized)", flush=True)
+
+    # the states before each init frame, from a fresh engine
+    eng = V.VOEngine(cfg5, H, W, seed=0, device="cuda")
+    cam, before = eng.cam, []
+    for i in range(init_frames[-1] + 1):
+        if i in init_frames:
+            before.append(eng.state)
+        eng.add_frame(frames[i])
+
+    # the init program: captured by its first call, then once more under
+    # set_sync_debug_mode("error"), then one profiled replay
+    progs = V.StagePrograms(cfg5, cam, H, W, "cuda")
+    imgs = [torch.as_tensor(frames[i], dtype=torch.float32, device="cuda") for i in init_frames]
+    call = lambda k: progs(before[k], imgs[k], S.STAGE_INITIALIZING, int(before[k].rng))
+    call(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any wait on the stream raises
+    try:
+        call(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    prog = progs.programs[S.STAGE_INITIALIZING]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call(1)
+        torch.cuda.synchronize()
+    ks = _device_kernels(prof)
+    init_kernels, init_ms = sum(c for _, _, c in ks), sum(ms for _, ms, _ in ks)
+    replay_ms = _events_ms(lambda: call(1), 20)
+    print(f"4d: the captured five-point init program (warm-up / capture "
+          f"{_fmt_secs((prog.warmup_s, prog.capture_s))} s) ran a replay under "
+          f"set_sync_debug_mode('error') without a sync; one replay: {init_kernels} device "
+          f"kernels, device busy {init_ms:.3f} ms; {replay_ms:.3f} ms per call (CUDA events over "
+          f"20 calls: draws, copies in, replay)", flush=True)
+    for name, ms, count in ks[:6]:
+        print(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}", flush=True)
+
+    # the Jacobi eigh at the solver's shapes: per call, kernels and device ms
+    n_e = max(cfg5.ransac.n_hypotheses // 4, 8)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    eigh_rows = {}
+    for tag, shape in (("9x9", (n_e, 9, 9)), ("10x10", (n_e, 8, 10, 10))):
+        X = torch.randn(shape, generator=g, device="cuda")
+        M = X @ X.mT
+        lie.eigh(M)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            lie.eigh(M)
+            torch.cuda.synchronize()
+        ek = _device_kernels(prof)
+        graph_ms, eager_ms = _time_ms(lambda: lie.eigh(M), 5)
+        eigh_rows[tag] = dict(shape=list(shape), kernels=sum(c for _, _, c in ek),
+                              device_ms=sum(ms for _, ms, _ in ek), graph_ms=graph_ms,
+                              eager_ms=eager_ms)
+        print(f"4d: lie.eigh (Jacobi, {lie._EIGH_SWEEPS[torch.float32]} sweeps) on {shape}: "
+              f"{eigh_rows[tag]['kernels']} device kernels per call, device busy "
+              f"{eigh_rows[tag]['device_ms']:.3f} ms (profiled); per call {graph_ms:.3f} ms "
+              f"replayed in a graph, {eager_ms:.3f} ms eager (CUDA events)", flush=True)
+
+    # the E-RANSAC on every init frame: the card's (captured) against the CPU's
+    th = float(np.float32(cfg5.ransac.threshold_px) / _focal(cam))
+    ransac = lambda x1, x2, valid, u, G: EP.estimate_essential(
+        x1, x2, valid, None, threshold=th, n_hypotheses=cfg5.ransac.n_hypotheses, minimal="5pt",
+        u=u, G=G)
+    captured = CapturedStep(lambda st, x1, x2, valid, u, G: (st, *ransac(x1, x2, valid, u, G)))
+    rows = []
+    for k, i in enumerate(init_frames):
+        x1, x2, valid = _init_matches(cfg5, cam, before[k], imgs[k])
+        d = V._stage_draws(cfg5, S.STAGE_INITIALIZING, int(before[k].rng), "cuda")
+        _, E_card, inl_card, n_card = captured(torch.zeros(1, device="cuda"), x1, x2, valid,
+                                               d.init_e, d.init_G)
+        E_card, n_card = E_card.cpu(), int(n_card)
+        cpu = ransac(x1.cpu(), x2.cpu(), valid.cpu(), d.init_e.cpu(), d.init_G.cpu())
+        Ec, Eg = cpu.model / cpu.model.norm(), E_card / E_card.norm()
+        dE = float(torch.minimum((Ec - Eg).abs().max(), (Ec + Eg).abs().max()))
+        rows.append(dict(frame=i, inliers_card=n_card, inliers_cpu=int(cpu.n_inliers),
+                         e_diff=dE, matches=int(valid.sum())))
+    print("4d: E-RANSAC on each init frame, card (Jacobi eigh, captured, "
+          f"{captured.replays} replays) against the CPU (LAPACK), same draws: "
+          + "; ".join(f"frame {r['frame']}: inliers {r['inliers_card']}/{r['inliers_cpu']} of "
+                      f"{r['matches']} matches, E up to sign {r['e_diff']:.2e}" for r in rows)
+          + f"; largest difference in E {max(r['e_diff'] for r in rows):.3e}, largest inlier "
+          f"count difference {max(abs(r['inliers_card'] - r['inliers_cpu']) for r in rows)}",
+          flush=True)
+    return dict(init_frames=init_frames, won=won, init_program_kernels=init_kernels,
+                init_program_device_ms=init_ms, init_program_ms=replay_ms, eigh=eigh_rows,
+                ransac=rows)
 
 
 def _phase_4g(frames, gt, robust_seq, chain_seq, planar_seq, main, cfg):
@@ -1063,6 +1229,70 @@ def _wait(procs, logs, what):
         raise AssertionError(f"4h {what}: a process exited {bad[0][0]}:\n{bad[0][1]}")
 
 
+def _phase_4h_a(cfg, frames, gt, main, mesh):
+    """Phase 4h (a): the mesh route on ``mesh`` (a one-rank NCCL world) over
+    phase 4's frames, the stage programs against the eager ``step(mesh=...)``
+    in turns (see the module docstring). Returns (the first graph run's
+    record, the kernels line's additions)."""
+    from monocular_visual_odometry_tpu_torch.models import state as S
+    from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
+
+    _drive(cfg, frames[:WARM_FRAMES], gt[:WARM_FRAMES], mesh=mesh)   # set-up off the clock
+    # the stage programs (the tracking graph replays the sharded BA's
+    # collectives) and the eager step(mesh=...), in turns
+    turns = {}
+    for route in ("graph", "eager", "graph"):
+        r = _drive(cfg, frames, gt, mesh=mesh, route=route)
+        _check_counts(f"4h (a) {route}", cfg, r)
+        turns.setdefault(route, []).append(r)
+    a = turns["graph"][0]
+    if a["captured"] != [0, 1, 2] or a["replays"] != a["frames"]:
+        raise AssertionError(f"4h (a): captured stages {a['captured']}, {a['replays']} replays "
+                             f"in {a['frames']} frames (every stage a graph under NCCL)")
+    routes_a = _compare_routes("4h (a)", {"mesh": turns})
+    entered = np.concatenate([[False], a["stages"][:-1] == S.STAGE_TRACKING])
+    per_frame = {tuple(r) for r, t in zip(a["records"], entered) if t}
+    for route, runs in turns.items():
+        for i, r in enumerate(runs):
+            if r["records"] != a["records"]:
+                raise AssertionError(f"4h (a): the {route} run {i} recorded other collectives "
+                                     f"than the first graph run")
+    if len(per_frame) != 1 or any(r for r, t in zip(a["records"], entered) if not t):
+        raise AssertionError(f"4h (a): the collectives differ between tracking frames, or a "
+                             f"frame outside tracking called one ({len(per_frame)} kinds)")
+    by_op = {}
+    for op, nbytes in next(iter(per_frame)):
+        by_op.setdefault(op, []).append(nbytes)
+    # waits per add_frame on the captured mesh route, over tracking frames
+    eng = VOEngine(cfg, H, W, seed=0, device="cuda", mesh=mesh)
+    for f in frames[:READBACK_FROM]:
+        eng.add_frame(f)
+    waits = [_sync_calls(lambda f=f: eng.add_frame(f))[1]
+             for f in frames[READBACK_FROM:READBACK_FROM + READBACK_FRAMES]]
+    dist_main, _ = _first_parting(a["est"], main["est"], 1e-4)
+    print(f"4h (a) mesh route, one-rank NCCL world, default config, graph route: {a['frames']} "
+          f"frames in {a['wall_s']:.2f} s = {a['fps']:.2f} fps (phase 4 in this call: "
+          f"{main['fps']:.2f} fps); captured stages {a['captured']}, {a['replays']} graph "
+          f"replays, warm-up / capture seconds per stage {_fmt_capture(a['capture_s'])}; final "
+          f"stage {a['stage']}, tracking failures {a['n_fail']}, Sim3 ATE {a['ate']:.4f} "
+          f"({100 * a['ate'] / a['length']:.2f}% of the path); matcher launches {a['launches']} "
+          f"(match_features calls {a['match_calls']}), ba_update_state_dist calls "
+          f"{a['ba_calls']} (tracking frames {a['ba_expected']}); collectives per tracking frame "
+          f"{sum(len(v) for v in by_op.values())} (result bytes by primitive "
+          f"{by_op}), equal on every frame of every run, graph and eager; synchronizing calls "
+          f"per add_frame over frames {READBACK_FROM}...: {waits}; largest pose distance to "
+          f"phase 4's run {dist_main:.3e}", flush=True)
+    if waits != [1] * READBACK_FRAMES:
+        raise AssertionError(f"4h (a): add_frame waited {waits} times per frame on the mesh "
+                             f"route (one readback each)")
+    if not (a["finite"] and a["stage"] == S.STAGE_TRACKING and a["n_fail"] <= 5
+            and a["ate"] < 0.03 * a["length"]):
+        raise AssertionError(f"4h (a): stage {a['stage']}, {a['n_fail']} failures, ATE "
+                             f"{100 * a['ate'] / a['length']:.2f}%")
+    return a, {"mesh_routes": routes_a, "mesh_waits_per_frame": waits,
+               "mesh_collectives_per_tracking_frame": by_op}
+
+
 def _phase_4h(frames, gt, seq18, main, cfg, clock_mhz):
     """Phase 4h, the mesh route on the card (see the module docstring).
     Returns the kernels line's additions."""
@@ -1085,21 +1315,7 @@ def _phase_4h(frames, gt, seq18, main, cfg, clock_mhz):
     mesh = PM.points_mesh()
     print(f"4h: {mesh} ({dist.get_backend()}, collective timeout {MESH_TIMEOUT_S:.0f} s)",
           flush=True)
-    _drive(cfg, frames[:WARM_FRAMES], gt[:WARM_FRAMES], mesh=mesh)   # set-up off the clock
-    a = _drive(cfg, frames, gt, mesh=mesh)
-    _check_counts("4h (a)", cfg, a)
-    dist_main, _ = _first_parting(a["est"], main["est"], 1e-4)
-    print(f"4h (a) mesh route, one-rank NCCL world, default config: {a['frames']} frames in "
-          f"{a['wall_s']:.2f} s = {a['fps']:.2f} fps (phase 4 in this call: {main['fps']:.2f} "
-          f"fps); final stage {a['stage']}, tracking failures {a['n_fail']}, Sim3 ATE "
-          f"{a['ate']:.4f} ({100 * a['ate'] / a['length']:.2f}% of the path); matcher launches "
-          f"{a['launches']} (match_features calls {a['match_calls']}), ba_update_state_dist "
-          f"calls {a['ba_calls']} (tracking frames {a['ba_expected']}); largest pose distance "
-          f"to phase 4's run {dist_main:.3e}", flush=True)
-    if not (a["finite"] and a["stage"] == S.STAGE_TRACKING and a["n_fail"] <= 5
-            and a["ate"] < 0.03 * a["length"]):
-        raise AssertionError(f"4h (a): stage {a['stage']}, {a['n_fail']} failures, ATE "
-                             f"{100 * a['ate'] / a['length']:.2f}%")
+    a, mesh_a = _phase_4h_a(cfg, frames, gt, main, mesh)
 
     def gate(tag, mode, got, ref):
         d_max, _ = _first_parting(got["est"], ref["est"], 0.0)
@@ -1232,7 +1448,7 @@ def _phase_4h(frames, gt, seq18, main, cfg, clock_mhz):
     dist.destroy_process_group()
     print(f"4h: phase 4h took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"mesh_launches": a["launches"], "mesh_ba_dist_calls": a["ba_calls"],
-            "mesh_fps": a["fps"], "live_shape": {str(D): rec for D, rec in live.items()}}
+            "mesh_fps": a["fps"], **mesh_a, "live_shape": {str(D): rec for D, rec in live.items()}}
 
 
 _BANNER = re.compile(r"^frame +(\d+) \[(\w+) *\] .* (KF|  ) (ok|TRACK-FAIL)$", re.M)
@@ -1504,6 +1720,75 @@ def _batch_invariance(cfg, cam, st_init, img_init, st_track, img_track):
         raise AssertionError("4i: the frontend's output depends on the batch size")
 
 
+def _phase_4i_5pt(cfg, cam, frames, fresh):
+    """Phase 4i's general step under the five-point solver at the largest B:
+    the captured body against the eager body over the same steps (see the
+    module docstring). Returns the run's record."""
+    from monocular_visual_odometry_tpu_torch.models import ba as BA
+    from monocular_visual_odometry_tpu_torch.models import state as S
+    from monocular_visual_odometry_tpu_torch.models import vo as V
+    from monocular_visual_odometry_tpu_torch.ops.cuda import hamming as HM
+
+    n = frames.shape[1]
+    # the general step under the five-point solver: the captured body (its
+    # init's eigh the Jacobi) against the eager body over the same steps
+    cfg5 = cfg.replace(ransac=dataclasses.replace(cfg.ransac, essential_minimal="5pt"))
+    nb = GENERAL_SIZES[-1]
+    V.run_sequences_general(cfg5, cam, fresh(nb), frames[:nb, :1], height=H, width=W)
+    prog = V._batched_program("general", cfg5, cam, nb, H, W, frames.device)
+    sts = fresh(nb)
+    torch.cuda.synchronize()
+    HM.hamming_nn_top2.launches = 0
+    BA.ba_update_state.calls = 0
+    replays = prog.replays
+    t0 = time.perf_counter()
+    final, outs = V.run_sequences_general(cfg5, cam, sts, frames[:nb], height=H, width=W)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    replays = prog.replays - replays
+    launches, ba_calls = HM.hamming_nn_top2.launches, BA.ba_update_state.calls
+    stage, ok = outs.stage.cpu().numpy(), outs.tracking_ok.cpu().numpy()
+    init = [int(np.argmax(stage[:, b] == S.STAGE_TRACKING)) for b in range(nb)]
+    r5 = dict(wall_s=wall, fps=nb * n / wall, ms_per_step=1e3 * wall / n, launches=launches,
+              ba_calls=ba_calls, replays=replays, capture_s=(prog.warmup_s, prog.capture_s),
+              init=init, n_fail=(~ok).sum(0).tolist(), stage=final.stage.cpu().tolist(),
+              used_homography_at_init=[bool(outs.used_homography[i, b])
+                                       for b, i in enumerate(init)])
+    print(f"4i five-point general B={nb}: {n} steps in {wall:.2f} s = {r5['fps']:.2f} fps "
+          f"aggregate ({r5['ms_per_step']:.1f} ms per step); warm-up / capture "
+          f"{_fmt_secs(r5['capture_s'])} s; matcher launches {launches}, ba_update_state calls "
+          f"{ba_calls}, graph replays {replays}; init frame {init}, H won at init "
+          f"{r5['used_homography_at_init']}; tracking failures {r5['n_fail']}, final stages "
+          f"{r5['stage']}", flush=True)
+    if replays != n or launches != 3 * n or ba_calls != n:
+        raise AssertionError(f"4i five-point B={nb}: {replays} replays, {launches} matcher "
+                             f"launches, {ba_calls} BA calls in {n} steps")
+    if any(s_ != S.STAGE_TRACKING for s_ in r5["stage"]):
+        raise AssertionError(f"4i five-point B={nb}: final stages {r5['stage']}")
+    k = GENERAL_5PT_EAGER_STEPS
+    wall_e, d5 = _against_eager(f"4i five-point B={nb}, the first {k} steps", "general", cfg5,
+                                cam, sts, frames[:nb, :k], type(outs)(*(t[:k] for t in outs)))
+    r5.update(eager_fps=nb * k / wall_e, eager_ms_per_step=1e3 * wall_e / k,
+              max_pose_distance=d5)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        V.run_sequences_general(cfg5, cam, fresh(nb), frames[:nb, :GENERAL_PROFILE_STEPS],
+                                height=H, width=W)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ks = _device_kernels(prof)
+    busy = sum(ms for _, ms, _ in ks)
+    r5.update(kernels_per_step=sum(c for _, _, c in ks) / GENERAL_PROFILE_STEPS,
+              busy_ms_per_step=busy / GENERAL_PROFILE_STEPS, busy_share=busy / wall_ms)
+    print(f"4i five-point B={nb}: graph {r5['fps']:.2f} fps ({r5['ms_per_step']:.1f} ms per "
+          f"step) against the eager body {r5['eager_fps']:.2f} fps "
+          f"({r5['eager_ms_per_step']:.1f} ms per step); profile, graph: "
+          f"{GENERAL_PROFILE_STEPS} steps, {r5['kernels_per_step']:.0f} device kernels and "
+          f"{r5['busy_ms_per_step']:.1f} ms device busy per step ({100 * r5['busy_share']:.1f}% "
+          f"of the wall under the profiler)", flush=True)
+    return r5
+
+
 def _phase_4i(cfg, batch_seqs, single, rates):
     """Phase 4i, JAX's ``profile_throughput.py`` "general" protocol: B streams
     in any stage in one vmapped step (``run_sequences_general``) over 4e's
@@ -1711,6 +1996,8 @@ def _phase_4i(cfg, batch_seqs, single, rates):
             raise AssertionError(f"4i: stream {b}'s next key is not its step's")
     if not max(d_cpu + d_step) < 1e-3:
         raise AssertionError(f"4i: poses differ by {max(d_cpu + d_step)}")
+
+    runs["5pt"] = _phase_4i_5pt(cfg, cam, frames, fresh)
     print(f"4i: phase 4i took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return runs
 
@@ -2008,7 +2295,8 @@ def main() -> int:
     main, eager = turns["graph"][0], turns["eager"][0]
     no_ba = run_path("4a BA off (cfg3), graph route", cfg_no_ba, N_FRAMES)
     no_ba_eager = run_path("4a BA off (cfg3), eager route", cfg_no_ba, N_FRAMES, "eager")
-    routes = _compare_routes(turns, no_ba, no_ba_eager)
+    routes = _compare_routes("4", {"cfg4": turns,
+                                   "cfg3": {"graph": [no_ba], "eager": [no_ba_eager]}})
     per_ba = 1e3 * (main["wall_s"] - no_ba["wall_s"]) / max(main["ba_calls"], 1)
     print(f"4a: in this call, BA on {main['fps']:.2f} fps against BA off {no_ba['fps']:.2f} "
           f"fps (graph route): {per_ba:.2f} ms more per BA call", flush=True)
@@ -2108,10 +2396,20 @@ def main() -> int:
         raise AssertionError(f"ba_update_state on the card differs from the CPU by {ba_err}")
 
     elapsed("phase 4d")
-    # ---- 4d. the five-point configuration ----------------------------------
-    five = run_path("4d five-point (essential_minimal='5pt', BA on)", cfg_5pt, N_FRAMES)
+    # ---- 4d. the five-point configuration: graph and eager in turns --------
+    turns_5pt = {}
+    for route in ("graph", "eager", "eager", "graph"):
+        turns_5pt.setdefault(route, []).append(run_path(
+            f"4d five-point (essential_minimal='5pt', BA on), {route} route", cfg_5pt, N_FRAMES,
+            route))
+    five = turns_5pt["graph"][0]
+    if five["captured"] != [0, 1, 2] or five["replays"] != five["frames"]:
+        raise AssertionError(f"4d: captured stages {five['captured']}, {five['replays']} "
+                             f"replays in {five['frames']} frames (every stage a graph)")
+    routes_5pt = _compare_routes("4d", {"5pt": turns_5pt})
     print(f"4d: largest pose difference from the main path's trajectory "
           f"{float(np.abs(five['est'] - main['est']).max()):.3e}", flush=True)
+    init_5pt = _phase_4d_init(cfg_5pt, frames, five)
 
     elapsed("phase 4e")
     # ---- 4e. the batched steady state: B streams, one vmapped step ---------
@@ -2356,6 +2654,8 @@ def main() -> int:
         "launches": main["launches"],
         "cli_launches": cli_launches,
         "cfg6_launches": paths["cfg6"]["launches"],
+        "five_point_launches": five["launches"],
+        "general_5pt_launches": general["5pt"]["launches"],
         "phase_4g_launches": {tag: r["launches"] for tag, r in paths.items()},
         **mesh_info,
         "exact": True,
@@ -2382,7 +2682,7 @@ def main() -> int:
         "general_fps": {str(nb): r["fps"] for nb, r in general.items()},
         "single_stream_fps_sum": single_fps_sum,
         "graph_route": dict(
-            routes, waits_per_frame=graph_waits,
+            routes, waits_per_frame=graph_waits, five_point=dict(routes_5pt, **init_5pt),
             profile={k: {f: v for f, v in r.items() if f != "hamming_ms"}
                      for k, r in profile.items()},
             batched={str(nb): {k: r.get(k) for k in (

@@ -16,9 +16,9 @@ such a program with static buffers for its inputs:
   own input is not copied), then, on a CUDA device, replays the graph: the
   first call warms ``fn`` up on a side stream and captures it, and a
   failed capture or replay raises (there is no eager fallback). On the CPU,
-  or where the caller asks for no graph (``graph=False``: a program that
-  waits on the card, as the five-point init does), the same object calls
-  ``fn`` eagerly on the same buffers.
+  or where the caller asks for no graph (``graph=False``: a program whose
+  calls cannot be captured, as gloo's collectives cannot), the same object
+  calls ``fn`` eagerly on the same buffers.
 - Inside the program, every output that shares memory with an input buffer
   is cloned first, and the new state is copied back into the state buffers
   last: a replay never reads a buffer it has already written, and no output
@@ -29,10 +29,15 @@ such a program with static buffers for its inputs:
 - **Memory.** Each graph has its own memory pool (``torch.cuda.graph``'s
   default): the stage programs of one engine replay in any order, which a
   shared pool allows only in capture order.
-- **Counters.** ``hamming_nn_top2.launches`` and ``ba_update_state.calls``
-  count in Python, so a replay would not move them. The capture records
-  what one call adds to each and each replay adds it; the warm-up and the
-  capture itself are set-up and leave them as they were.
+- **Counters.** ``hamming_nn_top2.launches``, ``ba_update_state.calls``
+  and ``ba_update_state_dist.calls`` count in Python, so a replay would not
+  move them. The capture records what one call adds to each and each replay
+  adds it; the warm-up and the capture itself are set-up and leave them as
+  they were. A ``parallel.mesh.PointsMesh`` handed as ``mesh`` is treated
+  the same way: the collectives one call appends to its ``record`` are
+  appended again on each replay (an NCCL collective is captured into the
+  graph with the kernels around it; the communicator is made by the
+  warm-up).
 
 Nothing is captured or built when this module is imported.
 """
@@ -49,10 +54,12 @@ from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 from monocular_visual_odometry_tpu_torch.models import ba
 from monocular_visual_odometry_tpu_torch.ops import consts, features
 from monocular_visual_odometry_tpu_torch.ops.cuda import hamming
+from monocular_visual_odometry_tpu_torch.parallel import dist_ba
 
 # the Python-side counters a replay moves: name -> (function, attribute)
 COUNTERS = {"hamming_nn_top2": (hamming.hamming_nn_top2, "launches"),
-            "ba_update_state": (ba.ba_update_state, "calls")}
+            "ba_update_state": (ba.ba_update_state, "calls"),
+            "ba_update_state_dist": (dist_ba.ba_update_state_dist, "calls")}
 # caches of device tensors the programs read: an entry made during a capture
 # would land in the graph's pool, an evicted one would free memory a graph
 # still reads; both are unbounded and filled by the warm-up
@@ -71,21 +78,28 @@ def _add_counts(delta: dict) -> None:
 class CapturedStep:
     """``fn`` as a captured program with static input buffers (see the module
     docstring). ``graph``: capture on a CUDA device (False runs ``fn``
-    eagerly on the buffers there too). Attributes: ``calls``, ``replays``,
-    ``per_call`` (what one call adds to each counter), ``warmup_s`` and
+    eagerly on the buffers there too); ``mesh``: the mesh whose ``record``
+    ``fn`` appends to, if any. Attributes: ``calls``, ``replays``,
+    ``per_call`` (what one call adds to each counter), ``per_call_record``
+    (what one call appends to the mesh's record), ``warmup_s`` and
     ``capture_s`` (seconds of the first call's warm-up and capture)."""
 
-    def __init__(self, fn: Callable, *, graph: bool = True):
+    def __init__(self, fn: Callable, *, graph: bool = True, mesh=None):
         self.fn = fn
         self.graph = graph
+        self.mesh = mesh
         self.calls = self.replays = 0
         self.per_call: dict = {}
+        self.per_call_record: list = []
         self.warmup_s = self.capture_s = None
         self._spec = None      # the inputs' structure
         self._bufs = None      # input buffers, flat (None where the input is None)
         self._n_state = 0      # the first _n_state buffers are the state's
         self._outs = None      # the captured program's outputs
         self._cuda_graph = None
+
+    def _n_record(self) -> int:
+        return 0 if self.mesh is None else len(self.mesh.record)
 
     # -- buffers ------------------------------------------------------------
 
@@ -141,7 +155,7 @@ class CapturedStep:
         return outs
 
     def _capture(self) -> None:
-        before = _counts()
+        before, n_before = _counts(), self._n_record()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         t0 = time.perf_counter()
@@ -151,7 +165,7 @@ class CapturedStep:
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        warm = _counts()
+        warm, n_warm = _counts(), self._n_record()
         sizes = [c.cache_info().currsize for c in _CACHES]
         graph = torch.cuda.CUDAGraph()
         # Python's cycle collector must not run inside the capture: a graph
@@ -175,6 +189,9 @@ class CapturedStep:
         for k, (f, a) in COUNTERS.items():
             setattr(f, a, before[k])
         self.per_call = {k: after[k] - warm[k] for k in COUNTERS}
+        if self.mesh is not None:
+            self.per_call_record = self.mesh.record[n_warm:]
+            del self.mesh.record[n_before:]
         self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
         self._cuda_graph, self._outs = graph, outs
 
@@ -189,10 +206,14 @@ class CapturedStep:
             self._cuda_graph.replay()
             self.replays += 1
             _add_counts(self.per_call)
+            if self.mesh is not None:
+                self.mesh.record.extend(self.per_call_record)
             outs = self._outs
         else:
-            before = _counts()
+            before, n_before = _counts(), self._n_record()
             outs = self._body()
             after = _counts()
             self.per_call = {k: after[k] - before[k] for k in COUNTERS}
+            if self.mesh is not None:
+                self.per_call_record = self.mesh.record[n_before:]
         return (self._inputs()[0], *outs)

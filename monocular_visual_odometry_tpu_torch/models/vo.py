@@ -25,9 +25,11 @@ graph, so a frame is one replay and one readback (the packed
 ``is_keyframe`` the next key. The tracking program (:func:`_track_frame`)
 computes BA and the keyframe update on every tracking frame and applies them
 by selects, as JAX's batched step does (JAX's ``step_fused``: ``lax.cond``).
-:func:`run_sequence` goes through the same programs; :func:`step` stays the
-eager host-branch step (the reference, and the mesh route, whose
-collectives are not captured).
+With a ``mesh`` the tracking program runs the sharded BA instead, its
+collectives captured with it under NCCL (gloo's cannot be: there the
+tracking program runs eagerly). :func:`run_sequence` goes through the same
+programs; :func:`step` stays the eager host-branch step (the reference of
+both routes).
 
 The multi-stream modes are JAX's form too: B streams advance by one
 frame in one ``torch.func.vmap`` of a per-stream body with no host branch.
@@ -466,7 +468,8 @@ def step(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
     the stage, the tracking gate and the keyframe decision back and runs
     only the branches they pick (JAX's ``step_fused`` selects with
     ``lax.cond``). The reference of the captured route (:class:`VOEngine`,
-    :func:`run_sequence`), and the mesh route. Returns (new state, StepOutput).
+    :func:`run_sequence`), with or without a mesh. Returns (new state,
+    StepOutput).
 
     ``mesh`` (a ``parallel.mesh.PointsMesh``): the windowed BA runs sharded
     over its ranks (``parallel.dist_ba``), honouring ``cfg.ba.fix_map_points``
@@ -509,18 +512,11 @@ def run_sequence(cfg: VOConfig, cam: Camera, st: S.VOState, frames, *,
     graph replay per frame), each frame's ``StepOutput`` written into a
     preallocated [N] output on the device; each frame reads back its stage
     and keyframe flag (one small copy), which pick the next frame's program
-    and key. ``mesh``: :func:`step` eagerly instead, with the sharded BA.
-    Returns (final state, StepOutput with a leading [N] on every field, on
-    the state's device)."""
+    and key. ``mesh``: the tracking program runs the sharded BA (see
+    :class:`StagePrograms`). Returns (final state, StepOutput with a leading
+    [N] on every field, on the state's device)."""
     frames = _frames_on(frames, st.T_w_c.device)
-    if mesh is not None:
-        outs = []
-        for img in frames:
-            st, out = step(cfg, cam, st, img.to(torch.float32), height=height, width=width,
-                           mesh=mesh)
-            outs.append(out)
-        return st, _stack_outputs(outs)
-    programs = StagePrograms(cfg, cam, height, width, st.T_w_c.device)
+    programs = StagePrograms(cfg, cam, height, width, st.T_w_c.device, mesh=mesh)
     stage, key, outs = int(st.stage), int(st.rng), None
     for i, img in enumerate(frames):
         st, out = programs(st, img.to(torch.float32), stage, key)
@@ -624,14 +620,18 @@ def _vmap_dims(record):
 
 def _track_frame(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
                  d: BatchedDraws, *, height: int, width: int,
-                 feats: Optional[FrameFeatures] = None):
-    """One stream's tracking frame in a batched body: tracking, then BA
-    (``cfg.ba.enabled``) and the keyframe update computed unconditionally
-    and applied where ``tracking_ok`` / ``is_keyframe`` hold."""
+                 feats: Optional[FrameFeatures] = None, mesh=None):
+    """One stream's tracking frame in a batched body or a stage program:
+    tracking, then BA (``cfg.ba.enabled``; with a ``mesh`` the sharded
+    ``dist_ba.ba_update_state_dist``, as in :func:`step`) and the keyframe
+    update computed unconditionally and applied where ``tracking_ok`` /
+    ``is_keyframe`` hold."""
     new, out, feats, curr_mp = step_track(cfg, cam, st, img, height=height, width=width,
                                           u=d.pnp, feats=feats)
     if cfg.ba.enabled:
-        new = _tree_select(out.tracking_ok, ba.ba_update_state(cfg, cam, new), new)
+        solved = (ba.ba_update_state(cfg, cam, new) if mesh is None
+                  else dist_ba.ba_update_state_dist(cfg, cam, mesh, new))
+        new = _tree_select(out.tracking_ok, solved, new)
     kf_new = keyframe_update(cfg, cam, new, feats, curr_mp, height=height, width=width, u=d.epi)
     new = _tree_select(out.is_keyframe, kf_new, new)
     return new, out._replace(T_w_c=new.T_w_c, n_map_points=new.map.n_valid,
@@ -713,9 +713,14 @@ class StagePrograms:
     :class:`~monocular_visual_odometry_tpu_torch.models.capture.CapturedStep`
     made at its first use: :func:`step_first`, :func:`step_init` and
     :func:`_track_frame`, each branch-free with its draws made on the host.
-    On a card each is a CUDA graph, but the init's under the five-point
-    solver, whose ``eigh`` waits on the card: that one runs eagerly
-    (``captured_stages`` lists the stages that are graphs).
+    On a card each is a CUDA graph, the five-point init's too (its ``eigh``
+    takes its wait-free form there). ``mesh`` (a
+    ``parallel.mesh.PointsMesh``): the tracking program runs the sharded BA,
+    its collectives captured with it under NCCL and counted per replay in
+    ``mesh.record``; gloo's collectives cannot be captured, so under gloo
+    the tracking program runs eagerly on its buffers (``captured_stages``
+    lists the stages that are graphs). The first-frame and init programs
+    call no collective.
 
     ``programs(st, img, stage, key)`` advances ``st`` (its key ``key`` and
     stage ``stage`` held on the host) by one frame: returns (new state
@@ -723,31 +728,35 @@ class StagePrograms:
     frame. ``out.stage`` is the new state's stage in every program; the
     caller advances the key with ``out.is_keyframe`` (:func:`_advance_key`)."""
 
-    def __init__(self, cfg: VOConfig, cam: Camera, height: int, width: int, device):
+    def __init__(self, cfg: VOConfig, cam: Camera, height: int, width: int, device,
+                 mesh=None):
         self.cfg, self.cam, self.height, self.width = cfg, cam, height, width
         self.device = torch.device(device)
-        on_card = self.device.type == "cuda"
+        self.mesh = mesh
+        uncaptured = () if mesh is None or mesh.backend == "nccl" else (S.STAGE_TRACKING,)
         self.captured_stages = tuple(
-            s for s in (S.STAGE_BLANK, S.STAGE_INITIALIZING, S.STAGE_TRACKING) if on_card
-            and not (s == S.STAGE_INITIALIZING and cfg.ransac.essential_minimal == "5pt"))
+            s for s in (S.STAGE_BLANK, S.STAGE_INITIALIZING, S.STAGE_TRACKING)
+            if self.device.type == "cuda" and s not in uncaptured)
         self.programs: dict[int, CapturedStep] = {}
 
     def _fn(self, stage: int):
         # the programs hold no reference to self: an engine's graphs are then
         # freed with it, not later by the cycle collector
-        cfg, cam, height, width = self.cfg, self.cam, self.height, self.width
+        cfg, cam, height, width, mesh = self.cfg, self.cam, self.height, self.width, self.mesh
         if stage == S.STAGE_BLANK:
             return lambda st, img, d: step_first(cfg, cam, st, img)
         if stage == S.STAGE_INITIALIZING:
             return lambda st, img, d: step_init(cfg, cam, st, img, u_e=d.init_e, u_h=d.init_h,
                                                 G_e=d.init_G)
-        return lambda st, img, d: _track_frame(cfg, cam, st, img, d, height=height, width=width)
+        return lambda st, img, d: _track_frame(cfg, cam, st, img, d, height=height, width=width,
+                                               mesh=mesh)
 
     def __call__(self, st: S.VOState, img: torch.Tensor, stage: int, key: int):
         prog = self.programs.get(stage)
         if prog is None:
             prog = self.programs[stage] = CapturedStep(
-                self._fn(stage), graph=stage in self.captured_stages)
+                self._fn(stage), graph=stage in self.captured_stages,
+                mesh=self.mesh if stage == S.STAGE_TRACKING else None)
         return prog(st._replace(rng=None), img, _stage_draws(self.cfg, stage, key, self.device))
 
 
@@ -758,8 +767,7 @@ def _batched_program(kind: str, cfg: VOConfig, cam: Camera, b: int, height: int,
                      device) -> CapturedStep:
     """The batched body of ``kind`` ("tracking" or "general") as a
     ``CapturedStep`` whose last output is ``[stage before, is_keyframe]``
-    [2,B] (the step's one readback); on a card a graph, but the general
-    body under the five-point solver (its init waits on the card)."""
+    [2,B] (the step's one readback); on a card a graph."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -772,8 +780,7 @@ def _batched_program(kind: str, cfg: VOConfig, cam: Camera, b: int, height: int,
             new, out = body(cfg, cam, sts, imgs, draws, height=height, width=width)
             return new, out, torch.stack([sts.stage, out.is_keyframe.to(sts.stage.dtype)])
 
-        graph = not (kind == "general" and cfg.ransac.essential_minimal == "5pt")
-        prog = _BATCHED[key] = CapturedStep(fn, graph=graph)
+        prog = _BATCHED[key] = CapturedStep(fn)
     return prog
 
 
@@ -859,17 +866,19 @@ class VOEngine:
     through the stage program of the stage the previous frame's readback
     reported (:class:`StagePrograms`); on a card that is one graph replay
     and one readback per frame, and ``captured_stages`` says which stages
-    are graphs (the five-point init is not). ``fused=False`` takes JAX's
-    staged debugging route instead (:meth:`_add_frame_staged`); both give
-    the same poses. ``mesh`` (a ``parallel.mesh.PointsMesh``): the fused
-    step runs eagerly (:func:`step`) with the windowed BA sharded over the
-    mesh's ranks; every rank drives its own engine over the same frames.
+    are graphs. ``fused=False`` takes JAX's staged debugging route instead
+    (:meth:`_add_frame_staged`); both give the same poses. ``mesh`` (a
+    ``parallel.mesh.PointsMesh``): the stage programs run the windowed BA
+    sharded over the mesh's ranks (under NCCL its collectives are replayed
+    with the tracking graph, under gloo that program runs eagerly); every
+    rank drives its own engine over the same frames, and each picks its next
+    program from its own readback, which is bitwise equal on every rank.
     ``cfg.orb.max_keypoints`` and ``cfg.map.max_map_points`` must divide by
     the mesh size, and the route must be the fused one (ValueError).
 
-    ``state`` reads a copy of the engine's state on the captured route
-    (the stage programs' buffers change with the next frame); setting it
-    reads the new state's stage back once."""
+    ``state`` reads a copy of the engine's state on the fused route (the
+    stage programs' buffers change with the next frame); setting it reads
+    the new state's stage back once."""
 
     def __init__(self, cfg: VOConfig, height: int, width: int, seed: int = 0,
                  device="cuda", fused: bool = True, mesh=None):
@@ -888,8 +897,8 @@ class VOEngine:
         self.width = width
         self.cam = Camera.create(cfg.dataset.fx, cfg.dataset.fy,
                                  cfg.dataset.cx, cfg.dataset.cy)
-        self.stages = (StagePrograms(cfg, self.cam, height, width, self.device)
-                       if fused and mesh is None else None)
+        self.stages = (StagePrograms(cfg, self.cam, height, width, self.device, mesh=mesh)
+                       if fused else None)
         self.state = S.init_state(cfg, seed, self.device)
 
     @property
@@ -914,10 +923,6 @@ class VOEngine:
             else img
         if not self.fused:
             return self._add_frame_staged(img)
-        if self.stages is None:
-            self._state, out = step(self.cfg, self.cam, self._state, img, height=self.height,
-                                    width=self.width, mesh=self.mesh)
-            return output_to_host(out)
         key = int(self._state.rng)
         new, out = self.stages(self._state, img, self._stage, key)
         out = output_to_host(out)

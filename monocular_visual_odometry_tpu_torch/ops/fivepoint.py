@@ -14,6 +14,12 @@ whose 4-fold near-zero eigenspace has no canonical basis: LAPACK builds
 differ in it, so the port's candidates are the JAX package's as a set, not
 in order. The basis is remixed by the QR of a Gaussian ``G`` [B,4,4],
 drawn from ``key`` or passed in.
+
+On a card (``lie.card_route``) both ``eigh`` calls are ``lie.eigh_jacobi``,
+so the solver reads nothing back and can be captured (the QR, the
+determinants and the solves do not wait there). Its bases differ from
+LAPACK's within the same spaces, so the card's candidates are the CPU's as
+a set, too.
 """
 
 from __future__ import annotations
@@ -84,11 +90,9 @@ def _det(M: torch.Tensor) -> torch.Tensor:
 
 def _eigh_vectors(M: torch.Tensor) -> torch.Tensor:
     """Eigenvectors of symmetric M (ascending eigenvalues); NaN for a matrix
-    with non-finite entries instead of raising."""
-    ok = _finite(M)[..., None, None]
-    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device).expand(M.shape)
-    V = torch.linalg.eigh(torch.where(ok, M, eye)).eigenvectors
-    return torch.where(ok, V, torch.full_like(V, float("nan")))
+    with non-finite entries instead of raising. On a card ``lie.eigh`` is
+    the wait-free Jacobi."""
+    return lie.eigh(M)[1]
 
 
 def _constraints(e: torch.Tensor) -> torch.Tensor:
@@ -176,8 +180,11 @@ def _candidates(basis: torch.Tensor):
     B = basis.shape[0]
     dev, dt = basis.device, basis.dtype
     C = _constraints(basis.reshape(B, 3, 3, 4))                    # [B,10,20]
-    Mcoef = torch.zeros((B, 10, 10, 4), dtype=dt, device=dev)
-    Mcoef[:, :, device_const(_COL, dev, torch.int64), device_const(_ZDEG, dev, torch.int64)] = C
+    # out of place, so that it batches under torch.func.vmap (the general
+    # batched step's init)
+    Mcoef = torch.zeros((B, 10, 10, 4), dtype=dt, device=dev).index_put(
+        (torch.arange(B, device=dev)[:, None, None], torch.arange(10, device=dev)[None, :, None],
+         device_const(_COL, dev, torch.int64), device_const(_ZDEG, dev, torch.int64)), C)
 
     # --- bracket real roots of det M(z) on the tan grid; theta stays
     # float32 at any precision, as in the reference

@@ -8,10 +8,13 @@ leading dimensions.
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
+from monocular_visual_odometry_tpu_torch.ops import consts
 from monocular_visual_odometry_tpu_torch.ops import precision  # noqa: F401  (TF32 off)
 
 _EPS = 1e-8
@@ -167,6 +170,13 @@ def relative_T(T_w_a: torch.Tensor, T_w_b: torch.Tensor) -> torch.Tensor:
     return inv_T(T_w_a) @ T_w_b
 
 
+def card_route(t: torch.Tensor) -> bool:
+    """Whether a factorization of ``t`` takes the card's wait-free form
+    (:func:`svd`, :func:`eigh` and their callers choose by it): on a CUDA
+    tensor. LAPACK's routes stay on the CPU, so no CPU result changes."""
+    return t.is_cuda
+
+
 _JACOBI_SWEEPS = 4
 
 
@@ -220,11 +230,95 @@ def svd(M: torch.Tensor):
     ``info`` back there (a wait on the stream) and has no ``_ex`` form."""
     ok = torch.isfinite(M).flatten(-2).all(-1)[..., None, None]
     M0 = torch.where(ok, M, torch.zeros_like(M))
-    U, S, Vt = (svd3_jacobi(M0) if M.is_cuda and M.shape[-2:] == (3, 3)
+    U, S, Vt = (svd3_jacobi(M0) if card_route(M) and M.shape[-2:] == (3, 3)
                 else torch.linalg.svd(M0))
     nan = torch.full((), float("nan"), dtype=M.dtype, device=M.device)
     return (torch.where(ok, U, nan), torch.where(ok[..., 0], S, nan),
             torch.where(ok, Vt, nan))
+
+
+# sweeps of eigh_jacobi by dtype: from 9x9 and 10x10 tests (rank-5 Gram
+# matrices, clustered spectra), where float32 reaches its rounding in 6 and
+# float64 in 10
+_EIGH_SWEEPS = {torch.float32: 7, torch.float64: 10}
+
+
+@functools.lru_cache(maxsize=None)
+def _round_robin(n: int):
+    """The cyclic-by-rounds (tournament) order of the pairs of ``n`` slots,
+    padded to an even m: m - 1 rounds of m / 2 disjoint pairs, every pair
+    once per sweep. Returns numpy int64 arrays (p, q) [m - 1, m / 2], p < q;
+    slot n (odd n) is the padding slot."""
+    m = n + n % 2
+    ring = list(range(1, m))
+    p, q = [], []
+    for _ in range(m - 1):
+        order = [0] + ring
+        pairs = [tuple(sorted((order[i], order[m - 1 - i]))) for i in range(m // 2)]
+        p.append([a for a, _ in pairs])
+        q.append([b for _, b in pairs])
+        ring = ring[-1:] + ring[:-1]
+    return np.asarray(p, np.int64), np.asarray(q, np.int64)
+
+
+def eigh_jacobi(M: torch.Tensor):
+    """Eigen-decomposition of symmetric float32 or float64 matrices
+    [..., n, n] by cyclic two-sided Jacobi: a fixed number of sweeps
+    (``_EIGH_SWEEPS``), each of m - 1 rounds of the
+    m / 2 disjoint plane rotations of a tournament order (:func:`_round_robin`;
+    m = n rounded up to even, the padding slot of an odd n a zero row and
+    column, which no rotation moves), applied at once as one orthogonal J:
+    A <- J' A J, V <- V J. Tensor ops only, a fixed count of them, so
+    nothing is read back. Returns (eigenvalues ascending [..., n],
+    eigenvectors [..., n, n] as columns in the same order), as
+    ``torch.linalg.eigh``; the signs of the vectors, and the basis of a
+    repeated eigenvalue's space, may differ from LAPACK's."""
+    n = M.shape[-1]
+    m = n + n % 2
+    batch = M.shape[:-2]
+    A = M if m == n else torch.nn.functional.pad(M, (0, 1, 0, 1))
+    V = torch.eye(m, dtype=M.dtype, device=M.device).expand(batch + (m, m))
+    P, Q = _round_robin(n)
+    dev = str(M.device)
+    # per round: the flat positions of (p,p), (q,q), (p,q), and where c, c,
+    # s, -s go in J
+    read = [consts.device_const(np.concatenate([p * m + p, q * m + q, p * m + q]), dev,
+                                torch.int64) for p, q in zip(P, Q)]
+    write = [consts.device_const(np.concatenate([p * m + p, q * m + q, p * m + q, q * m + p]),
+                                 dev, torch.int64) for p, q in zip(P, Q)]
+    k = m // 2
+    for _ in range(_EIGH_SWEEPS[M.dtype]):
+        for r in range(m - 1):
+            a = A.flatten(-2).index_select(-1, read[r])
+            app, aqq, apq = a[..., :k], a[..., k:2 * k], a[..., 2 * k:]
+            d, apq2 = aqq - app, 2.0 * apq
+            # tan of the angle that zeroes a_pq (the smaller root, |angle| <=
+            # pi/4); 0 where a_pq is 0, the padding slot's pairs included
+            t = apq2 / (d + torch.copysign(torch.hypot(d, apq2) + 1e-30, d))
+            c = torch.rsqrt(torch.addcmul(torch.ones_like(t), t, t))
+            s = c * t
+            J = torch.zeros(batch + (m * m,), dtype=M.dtype, device=M.device).index_copy(
+                -1, write[r], torch.cat([c, c, s, -s], dim=-1)).unflatten(-1, (m, m))
+            A = J.transpose(-1, -2) @ A @ J
+            V = V @ J
+    w = torch.diagonal(A, dim1=-2, dim2=-1)[..., :n]
+    order = torch.argsort(w, dim=-1)
+    return (torch.gather(w, -1, order),
+            torch.gather(V[..., :n, :n], -1, order[..., None, :].expand(batch + (n, n))))
+
+
+def eigh(M: torch.Tensor):
+    """``torch.linalg.eigh`` (eigenvalues ascending, eigenvectors as
+    columns) that turns a matrix with non-finite entries into NaN factors,
+    as ``jnp.linalg.eigh`` does. On a card the factorization is
+    :func:`eigh_jacobi`: ``torch.linalg.eigh`` reads its ``info`` back there
+    (a wait on the stream); the CPU keeps LAPACK."""
+    ok = torch.isfinite(M).flatten(-2).all(-1)
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    M0 = torch.where(ok[..., None, None], M, eye)
+    w, V = eigh_jacobi(M0) if card_route(M) else torch.linalg.eigh(M0)
+    nan = torch.full((), float("nan"), dtype=M.dtype, device=M.device)
+    return torch.where(ok[..., None], w, nan), torch.where(ok[..., None, None], V, nan)
 
 
 def project_onto_so3(M: torch.Tensor) -> torch.Tensor:

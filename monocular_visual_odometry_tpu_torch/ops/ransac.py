@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from monocular_visual_odometry_tpu_torch.ops import lie
 from monocular_visual_odometry_tpu_torch.ops import precision  # noqa: F401  (TF32 off)
 
 _MASK64 = (1 << 64) - 1
@@ -55,9 +56,10 @@ def sample_minimal_sets(key: int | None, valid: torch.Tensor, n_hypotheses: int,
 
 
 def nullspace_via_eigh(A: torch.Tensor) -> torch.Tensor:
-    """Smallest right-singular vector of A (..., M, D) via eigh(A'A)."""
+    """Smallest right-singular vector of A (..., M, D) via eigh(A'A)
+    (``lie.eigh``: on a card the wait-free Jacobi)."""
     AtA = torch.einsum("...md,...me->...de", A, A)
-    _, vecs = torch.linalg.eigh(AtA)
+    _, vecs = lie.eigh(AtA)
     return vecs[..., :, 0]
 
 

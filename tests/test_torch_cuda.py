@@ -31,10 +31,13 @@ CPU's in the last bits: poses agree to 1e-4, and with ``deterministic=True``
 in float64, as a solution set (see ``test_torch_fivepoint.py``). A state
 checkpoint saved on the card resumes there. ``VOEngine``'s graph route (one
 replay of a captured stage program per frame) equals the eager ``step``
-over 12 frames, waits once per frame, and a replay runs the kernel; a
-program that reads a value back fails to capture and raises. The sharded BA
+over 12 frames, the five-point configuration's too (its init a graph),
+waits once per frame, and a replay runs the kernel; a program that reads a
+value back fails to capture and raises. The sharded BA
 (``parallel/dist_ba.py``) runs in a one-rank NCCL world against ``ba_solve``
-on the card, and once on the mesh route without a host sync.
+on the card, once on the mesh route without a host sync, and on the
+captured mesh route (the tracking graph replaying its collectives) against
+the eager mesh step.
 """
 
 import dataclasses
@@ -585,7 +588,8 @@ def test_graph_route_equals_eager_step(card):
         assert float(TL.pose_distance(g.T_w_c, w.T_w_c)) <= 1e-4
     progs = eng.stages.programs
     assert sum(p.replays for p in progs.values()) == len(frames)
-    assert progs[TS.STAGE_TRACKING].per_call == {"hamming_nn_top2": 2, "ba_update_state": 1}
+    assert progs[TS.STAGE_TRACKING].per_call == {"hamming_nn_top2": 2, "ba_update_state": 1,
+                                                 "ba_update_state_dist": 0}
     # the eager run added its own: 1 per init attempt, 1 + is_keyframe per
     # tracking frame, BA where tracking held
     eager_launches = sum({0: 0, 1: 1}.get(s, 1 + int(bool(o.is_keyframe)))
@@ -594,6 +598,39 @@ def test_graph_route_equals_eager_step(card):
     graph_launches = stages.count(TS.STAGE_INITIALIZING) + 2 * n_track
     assert TH.hamming_nn_top2.launches - launches == graph_launches + eager_launches
     assert TB.ba_update_state.calls - calls == n_track + eager_ba
+
+
+@pytest.mark.cuda
+def test_five_point_init_captured_equals_eager_on_card(card):
+    """The five-point configuration: every stage a graph (the init's
+    ``eigh`` is the Jacobi there), one replay per frame, and every decision
+    and count equal to the eager step's over 14 frames, poses within 1e-4;
+    the init program's replay reads nothing back."""
+    cfg = VOConfig()
+    cfg = cfg.replace(ransac=dataclasses.replace(cfg.ransac, essential_minimal="5pt"))
+    frames, _ = TSYN.render_sequence_arrays(14, seed=0, translation_step=0.05)
+    eng, got, want = _graph_and_eager(cfg, frames)
+    assert eng.captured_stages == (0, 1, 2)
+    progs = eng.stages.programs
+    assert sum(p.replays for p in progs.values()) == len(frames)
+    assert progs[TS.STAGE_INITIALIZING].replays >= 2
+    for g, w in zip(got, want):
+        for f in ("stage", "is_keyframe", "tracking_ok", "used_homography", "n_matches",
+                  "n_inliers", "n_map_points"):
+            assert int(getattr(g, f)) == int(getattr(w, f)), f
+        assert float(TL.pose_distance(g.T_w_c, w.T_w_c)) <= 1e-4
+    assert int(got[-1].stage) == TS.STAGE_TRACKING
+    st = TS.init_state(cfg, 0, "cuda")
+    for f in frames[:2]:
+        st, _ = TV.step(cfg, eng.cam, st, torch.from_numpy(f).float().cuda(), height=480,
+                        width=640)
+    img = torch.from_numpy(frames[2]).float().cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.stages(st, img, TS.STAGE_INITIALIZING, int(st.rng))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 @pytest.mark.cuda
@@ -689,6 +726,46 @@ def test_mesh_route_ba_never_waits_on_the_host(nccl_mesh, fix_map_points):
                                    atol=1e-4)
     torch.testing.assert_close(got.ring.poses.cpu(), want.ring.poses.cpu(), rtol=0, atol=1e-4)
     torch.testing.assert_close(got.map.pts.cpu(), want.map.pts.cpu(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mesh_route_captured_equals_eager_on_card(nccl_mesh):
+    """``VOEngine(mesh=...)`` in a one-rank NCCL world: every stage a graph,
+    the tracking graph replaying the sharded BA's collectives; one replay
+    per frame, ``ba_update_state_dist`` once per tracking frame, the same
+    collectives on each frame as the eager ``step(mesh=...)`` and every
+    decision equal, poses within 1e-4 over 12 frames."""
+    from monocular_visual_odometry_tpu_torch.parallel import dist_ba
+
+    cfg = VOConfig()
+    frames, _ = TSYN.render_sequence_arrays(12, seed=0, translation_step=0.05)
+    eng = TV.VOEngine(cfg, 480, 640, device="cuda", mesh=nccl_mesh)
+    calls = dist_ba.ba_update_state_dist.calls
+    got, got_rec = [], []
+    for f in frames:
+        n = len(nccl_mesh.record)
+        got.append(eng.add_frame(f))
+        got_rec.append(nccl_mesh.record[n:])
+    graph_calls = dist_ba.ba_update_state_dist.calls - calls
+    st, want, want_rec = TS.init_state(cfg, 0, "cuda"), [], []
+    for f in frames:
+        n = len(nccl_mesh.record)
+        st, out = TV.step(cfg, eng.cam, st, torch.from_numpy(f).float().cuda(), height=480,
+                          width=640, mesh=nccl_mesh)
+        want.append(TV.output_to_host(out))
+        want_rec.append(nccl_mesh.record[n:])
+    assert eng.captured_stages == (0, 1, 2)
+    assert sum(p.replays for p in eng.stages.programs.values()) == len(frames)
+    stages = [TS.STAGE_BLANK] + [int(o.stage) for o in got[:-1]]
+    n_track = stages.count(TS.STAGE_TRACKING)
+    assert n_track >= 3 and graph_calls == n_track
+    assert got_rec == want_rec and all(bool(r) == (s == TS.STAGE_TRACKING)
+                                       for r, s in zip(got_rec, stages))
+    for g, w in zip(got, want):
+        for f in ("stage", "is_keyframe", "tracking_ok", "n_matches", "n_inliers",
+                  "n_map_points"):
+            assert int(getattr(g, f)) == int(getattr(w, f)), f
+        assert float(TL.pose_distance(g.T_w_c, w.T_w_c)) <= 1e-4
 
 
 @pytest.mark.cuda

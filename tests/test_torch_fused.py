@@ -35,6 +35,7 @@ from monocular_visual_odometry_tpu_torch.models import ba as TB
 from monocular_visual_odometry_tpu_torch.models import state as TS
 from monocular_visual_odometry_tpu_torch.models import vo as TV
 from monocular_visual_odometry_tpu_torch.models.capture import CapturedStep
+from monocular_visual_odometry_tpu_torch.ops import lie as tlie
 from monocular_visual_odometry_tpu_torch.ops.camera import Camera
 from monocular_visual_odometry_tpu_torch.ops.cuda import hamming as TH
 from monocular_visual_odometry_tpu_torch.utils.config import VOConfig
@@ -45,11 +46,12 @@ N_SCAN = 14   # run_sequence's frames (tests/test_fused_step.py's sequence lengt
 INTRINSICS = dict(fx=307.5, fy=307.5, cx=160.0, cy=120.0)
 
 
-def _cfg(ba: bool) -> VOConfig:
+def _cfg(ba: bool, minimal: str = "8pt") -> VOConfig:
     cfg = VOConfig()
     return cfg.replace(
         orb=dataclasses.replace(cfg.orb, max_keypoints=256, num_keypoints=2000),
-        ransac=dataclasses.replace(cfg.ransac, n_hypotheses=64, pnp_n_hypotheses=64),
+        ransac=dataclasses.replace(cfg.ransac, n_hypotheses=64, pnp_n_hypotheses=64,
+                                   essential_minimal=minimal),
         map=dataclasses.replace(cfg.map, max_map_points=1024),
         init=dataclasses.replace(cfg.init, min_pixel_dist=25.0),
         dataset=dataclasses.replace(cfg.dataset, **INTRINSICS),
@@ -142,7 +144,8 @@ def test_engine_equals_step(ba, eager_runs, engine_runs):
     assert launches == 0 and eng.captured_stages == ()
     prog = eng.stages.programs[TS.STAGE_TRACKING]
     assert prog.calls == sum(tracking) and prog.replays == 0
-    assert prog.per_call == {"hamming_nn_top2": 0, "ba_update_state": int(ba)}
+    assert prog.per_call == {"hamming_nn_top2": 0, "ba_update_state": int(ba),
+                             "ba_update_state_dist": 0}
 
 
 def test_run_sequence_equals_engine(frames, engine_runs):
@@ -174,15 +177,44 @@ class _Ops(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("stage,frame", [(TS.STAGE_BLANK, 0), (TS.STAGE_INITIALIZING, 1),
-                                         (TS.STAGE_INITIALIZING, 6), (TS.STAGE_TRACKING, 10)],
-                         ids=["first", "init_failing", "init_succeeding", "tracking"])
-def test_stage_program_reads_nothing_back(stage, frame, frames, eager_runs):
+@pytest.fixture(scope="module")
+def eager_5pt(frames):
+    """``step`` under the five-point solver on the card's route (``lie.card_route``
+    forced: both ``eigh`` calls Jacobi), from a fresh state through its first
+    successful init attempt: per frame (state before it, output)."""
+    cfg, run = _cfg(True, "5pt"), []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tlie, "card_route", lambda t: True)
+        st = TS.init_state(cfg, 0, "cpu")
+        for f in frames:
+            new, out = TV.step(cfg, CAM, st, _img(f), height=H, width=W)
+            run.append((st, out))
+            st = new
+            if int(out.stage) == TS.STAGE_TRACKING:
+                break
+    assert int(run[-1][1].stage) == TS.STAGE_TRACKING and len(run) > 2
+    return run
+
+
+@pytest.mark.parametrize("stage,frame,minimal", [
+    (TS.STAGE_BLANK, 0, "8pt"), (TS.STAGE_INITIALIZING, 1, "8pt"),
+    (TS.STAGE_INITIALIZING, 6, "8pt"), (TS.STAGE_TRACKING, 10, "8pt"),
+    (TS.STAGE_INITIALIZING, 1, "5pt"), (TS.STAGE_INITIALIZING, -1, "5pt")],
+    ids=["first", "init_failing", "init_succeeding", "tracking", "init_failing_5pt",
+         "init_succeeding_5pt"])
+def test_stage_program_reads_nothing_back(stage, frame, minimal, frames, eager_runs, request,
+                                          monkeypatch):
     """Each stage program, as captured, makes no readback, no tensor built
-    from host data and no copy between devices; its output's stage is its
-    new state's (the readback's stage picks the next program)."""
-    cfg = _cfg(True)
-    run, _ = eager_runs[True]
+    from host data, no copy between devices and no LAPACK ``eigh``; its
+    output's stage is its new state's (the readback's stage picks the next
+    program). The five-point init runs on the card's route (``lie.card_route``
+    forced), against ``step`` on the same route."""
+    if minimal == "5pt":
+        monkeypatch.setattr(tlie, "card_route", lambda t: True)
+        cfg, run = _cfg(True, "5pt"), request.getfixturevalue("eager_5pt")
+        frame %= len(run)
+    else:
+        cfg, (run, _) = _cfg(True), eager_runs[True]
     st = run[frame][0]
     assert int(st.stage) == stage
     fn = TV.StagePrograms(cfg, CAM, H, W, "cpu")._fn(stage)
@@ -191,7 +223,8 @@ def test_stage_program_reads_nothing_back(stage, frame, frames, eager_runs):
     with _Ops() as mode:
         new, out = fn(st._replace(rng=None), img, draws)
     found = {k: mode.ops[k] for k in ("_local_scalar_dense.default", "nonzero.default",
-                                      "lift_fresh.default", "_to_copy to another device")}
+                                      "lift_fresh.default", "_to_copy to another device",
+                                      "_linalg_eigh.default")}
     assert sum(found.values()) == 0, found
     assert torch.equal(out.stage, new.stage)
     _assert_equal(out, run[frame][1])
@@ -222,7 +255,8 @@ def test_batched_step_through_captured_step_equals_eager_body(kind, frames, eage
         _assert_equal(got, want, f"step {k}")
         _assert_equal(sts, want_st, f"step {k}")
     prog = TV._batched_program(kind, cfg, CAM, 2, H, W, torch.device("cpu"))
-    assert prog.per_call == {"hamming_nn_top2": 0, "ba_update_state": 1} and prog.replays == 0
+    assert prog.per_call == {"hamming_nn_top2": 0, "ba_update_state": 1,
+                             "ba_update_state_dist": 0} and prog.replays == 0
 
 
 class _Pair(NamedTuple):
@@ -251,7 +285,8 @@ def test_captured_step_buffers_aliasing_and_counters():
     assert out.tolist() == [1.0]  # an eager call's outputs are its own tensors
     assert new2.a is new.a        # the state buffers, written in place
     assert TB.ba_update_state.calls == calls + 2
-    assert prog.per_call == {"hamming_nn_top2": 0, "ba_update_state": 1}
+    assert prog.per_call == {"hamming_nn_top2": 0, "ba_update_state": 1,
+                             "ba_update_state_dist": 0}
     assert (prog.calls, prog.replays) == (2, 0)
     with pytest.raises(ValueError, match="shape"):
         prog(new2, torch.tensor([1.0, 2.0]))

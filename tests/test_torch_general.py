@@ -166,6 +166,32 @@ def test_relative_pose_draws_made_outside_equal_the_key(minimal):
     assert int(got.inliers.sum()) > 120
 
 
+def test_five_point_general_program_is_captured_and_equals_the_body(singles, sequences,
+                                                                    monkeypatch):
+    """The general batched program under the five-point solver is a graph on
+    a card too (``CapturedStep(graph=True)``; here it runs on its buffers).
+    One mixed step (a succeeding init attempt, tracking) on the card's route
+    (``lie.card_route`` forced: Jacobi ``eigh`` under vmap with the slow
+    fallback off) through ``step_general_batched`` equals the eager vmapped
+    body on the same draws, field by field."""
+    cfg = CFG.replace(ransac=dataclasses.replace(CFG.ransac, essential_minimal="5pt"))
+    states, imgs = _mixed(singles, sequences)
+    picked = [2, 3]
+    sts = TS.stack_states([states[i] for i in picked])
+    imgs = torch.from_numpy(np.stack([imgs[i] for i in picked])).float()
+    monkeypatch.setattr(tlie, "card_route", lambda t: True)
+    draws = TV.draw_general(cfg, sts.rng, "cpu")
+    new, out = TV.step_general_batched(cfg, CAM, sts, imgs, height=H, width=W, draws=draws)
+    prog = TV._batched_program("general", cfg, CAM, len(picked), H, W, "cpu")
+    assert prog.graph and prog.calls == 1
+    want_st, want = TV.general_batched_body(cfg, CAM, sts, imgs, draws, height=H, width=W)
+    _assert_equal(out, want)
+    for f in want_st._fields:
+        if f != "rng":   # the body leaves the keys to the host
+            _assert_equal(getattr(new, f), getattr(want_st, f), f)
+    assert out.stage.tolist() == [2, 2] and out.tracking_ok.tolist() == [True] * 2
+
+
 def _host_branch_init(cfg, cam, st, img):
     """The init stage as the port ran it before it was made branch-free:
     the quality gate read back on the host, then one branch or the other."""

@@ -16,6 +16,10 @@ Jobs (``python tests/torch_dist_worker.py JOB RANK WORLD DIR``):
                 timeout, that of a group made for the job (the world's is the default)
 - ``pipeline``  ``VOEngine(mesh=...)`` over frames, per config of the spec
 - ``single``    the same runs without a mesh (one process, no world)
+- ``programs``  per config of the spec: the eager ``step(mesh=...)`` loop,
+                then ``VOEngine(mesh=...)`` (the stage programs) and
+                ``run_sequence(mesh=...)`` over the same frames; outputs, the
+                collectives each frame recorded, the sharded BA's calls
 - ``jax``       the JAX package's ``VOEngine(mesh=points_mesh())`` on its
                 8-device virtual CPU mesh, per config of the spec (one
                 process, so that its compiles run beside the others)
@@ -209,6 +213,63 @@ def _job_pipeline(mesh, inp, spec):
     return out
 
 
+def _frame_records(records) -> np.ndarray:
+    """Per-frame mesh records as an int64 [n, 3] array: frame, op, bytes."""
+    rows = [np.concatenate([np.full((len(r), 1), i), record_array(r)], axis=1)
+            for i, r in enumerate(records)]
+    return np.concatenate(rows).astype(np.int64) if rows else np.zeros((0, 3), np.int64)
+
+
+def _job_programs(mesh, inp, spec):
+    """The mesh route through the stage programs against the eager step."""
+    import torch
+
+    from monocular_visual_odometry_tpu_torch.models import state as S
+    from monocular_visual_odometry_tpu_torch.models import vo as V
+    from monocular_visual_odometry_tpu_torch.parallel import dist_ba
+
+    frames = inp["frames"]
+    H, W = frames.shape[1:]
+    out = {}
+    for name, fields in spec["configs"].items():
+        cfg = _cfg(fields)
+        eng = V.VOEngine(cfg, H, W, seed=0, device="cpu", mesh=mesh)
+        runs = {"eager": [], "engine": []}
+        records = {"eager": [], "engine": []}
+        calls = {}
+        st = S.init_state(cfg, 0, "cpu")
+        for route in runs:
+            dist_ba.ba_update_state_dist.calls = 0
+            for f in frames:
+                mesh.record.clear()
+                if route == "eager":
+                    st, o = V.step(cfg, eng.cam, st, torch.from_numpy(f).float(), height=H,
+                                   width=W, mesh=mesh)
+                else:
+                    o = eng.add_frame(f)
+                runs[route].append(o)
+                records[route].append(list(mesh.record))
+            calls[route] = dist_ba.ba_update_state_dist.calls
+        for route, outs in runs.items():
+            for f in ("T_w_c", "stage", "is_keyframe", "tracking_ok", "n_matches", "n_inliers",
+                      "n_map_points"):
+                out[f"{name}_{route}_{f}"] = np.stack([getattr(o, f).numpy() for o in outs])
+            out[f"{name}_{route}_rec"] = _frame_records(records[route])
+            out[f"{name}_{route}_ba_calls"] = np.array(calls[route])
+        out[f"{name}_captured"] = np.array(eng.captured_stages, np.int64)
+        prog = eng.stages.programs[S.STAGE_TRACKING]
+        out[f"{name}_tracking_graph"] = np.array(prog.graph)
+        out[f"{name}_per_call_rec"] = record_array(prog.per_call_record)
+        if spec.get("run_sequence") == name:
+            mesh.record.clear()
+            final, seq = V.run_sequence(cfg, eng.cam, S.init_state(cfg, 0, "cpu"),
+                                        frames, height=H, width=W, mesh=mesh)
+            out[f"{name}_seq_T_w_c"] = seq.T_w_c.numpy()
+            out[f"{name}_seq_stage"] = seq.stage.numpy()
+            out[f"{name}_seq_n_rec"] = np.array(len(mesh.record))
+    return out
+
+
 def _job_jax(mesh, inp, spec):
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     import jax
@@ -246,7 +307,8 @@ def main(job, rank, world, workdir):
                             backend="gloo", timeout_s=TIMEOUT_S)
         mesh = PM.points_mesh()
     jobs = {"ba": _job_ba, "mesh": _job_mesh, "timeout": _job_timeout,
-            "pipeline": _job_pipeline, "single": _job_pipeline, "jax": _job_jax}
+            "pipeline": _job_pipeline, "single": _job_pipeline, "jax": _job_jax,
+            "programs": _job_programs}
     out = jobs[job](mesh, inp, spec)
     np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
     if mesh is not None and job != "timeout":
