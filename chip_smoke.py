@@ -63,7 +63,7 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    model won on each init frame; calls a captured init program once more
    under ``set_sync_debug_mode("error")`` and profiles one replay (device
    kernels and ms), and the Jacobi ``eigh`` per call at the solver's shapes
-   (64 9x9, 64x8 10x10); and on every init frame holds the card's
+   (64 9x9, 64x8 10x10, float64); and on every init frame holds the card's
    five-point E-RANSAC (captured) against the same call on a CPU copy
    (LAPACK) with the same draws: inlier counts and the largest difference
    in E up to sign, printed (the two bases are two charts of one solution
@@ -175,11 +175,41 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    (3 matcher launches, 1 BA call and 1 replay per step, every stream
    tracking) against the eager body over its first 20 steps (the same
    decisions, poses within 1e-4), and 2 profiled steps (device kernels);
+   4e and 4i print the card's memory (reserved, allocated) before and after
+   each capture of a batched body;
+   4j. the JAX package's evaluation configurations at their depth (150
+   frames, seeds 0-4): (a) ``profile_fivepoint_ab.py``'s two-view A/B (12
+   seeds at outlier fractions 0, 0.2, 0.4, 0.6, 5pt and 8pt, each seed's
+   draws made on the host) on the card's route (Jacobi ``eigh`` and 3x3
+   SVD), beside the CPU's (LAPACK) and the card's route forced on the CPU,
+   both in processes of their own, and FIVEPOINT_AB_r04.json; the card's
+   five-point medians within 1.25x + 0.05 deg (rotation) and 1.25x + 0.5
+   deg (translation direction) of LAPACK's, failures within one, at every
+   fraction; at fraction 0 the card's rotation per seed, read on the
+   nearest rotation, within 0.01 deg of LAPACK's; (b) the four tracking
+   profiles of ``profile_robustness_r5.py`` (reference_parity,
+   predict_only, default, robust) over its four scene and trajectory
+   combinations, the default also with the five-point
+   solver and over the undistortion rows (the lens distorted, and
+   undistorted), and the BA variants of ``profile_ba_ablation.py`` (BA on,
+   off, the 3 px re-gate) over its five rows: each configuration's streams
+   (sequences x seeds, from fresh ``init_state``s) through one captured
+   general batched body (``run_sequences_general``, at most 25 streams a
+   batch), 3 matcher launches, 1 ``ba_update_state`` call (0 with BA off)
+   and 1 replay per step, its memory at capture, each configuration's
+   program released after its rows (``vo.release_batched``); per row the
+   port's mean, min and max Sim(3) ATE and final drift (% of the path),
+   median init frame, failed seeds and where E won at init, beside the JAX
+   rows of ROBUSTNESS_r05.json and BA_ABLATION_r05.json: the same failed
+   seeds (0) and a mean ATE at most JAX's worst seed + 1.5 pp (JAX's own
+   spread between two compiles of one program);
 5. prints one JSON line describing the kernels, then, as the last line, the
    device JSON.
 
-Phase 3's shapes include cfg6's (1500x1500 r=100, 1536x1500 r=50) and the
-planar width's (512x512 r=100, 1536x512 r=50). It also holds batched
+Phase 3's shapes include the tracking call without the union gate
+(1536x1024 r=50, the profiles reference_parity and predict_only), cfg6's
+(1500x1500 r=100, 1536x1500 r=50) and the planar width's (512x512 r=100,
+1536x512 r=50). It also holds batched
 launches (B streams in one launch: B=8 at the tracking and keyframe shapes,
 B=3 ragged with a stream without valid queries and one with a single valid
 train point, B=3 with K2=1) against the plain version per stream and times
@@ -243,6 +273,35 @@ KERNELS_PER_STEP_RATIO = 1.5  # B=8 device kernels per batched step, at most x B
 GENERAL_SIZES = (1, 8)
 GENERAL_PROFILE_STEPS = 2
 GENERAL_5PT_EAGER_STEPS = 20  # 4i under 5pt: the eager body over the first steps (init at 6)
+# phase 4j: the JAX package's evaluation configurations at their depth
+# (profile_robustness_r5.py, profile_ba_ablation.py: 150 frames, seeds 0-4;
+# profile_fivepoint_ab.py: 200 points, 0.5 px noise, 12 seeds, 256 hypotheses)
+EVAL_FRAMES = 150
+EVAL_SEEDS = (0, 1, 2, 3, 4)
+EVAL_MAX_B = 25          # streams per general batched step; more go into batches of one B
+EVAL_BAND_PP = 1.5       # a row's mean ATE may exceed JAX's worst seed by this (its
+                         # compile_variance: a recompile alone moved a row's mean 1.5 pp)
+EVAL_DIST = np.array([-0.30, 0.09])  # profile_robustness_r5.py's undistortion rows
+# the five-point A/B's protocol and gate, and the configurations: tests/eval_protocol.py;
+# at outlier fraction 0 the card's nearest rotation per seed within this of the CPU's (deg)
+AB_ORTH_TOL = 0.01
+# phase 4j's sequences: the four of profile_robustness_r5.py's families, the
+# ablation's rows (benchmark_clean is family A's clean sequence), the
+# undistortion rows
+EVAL_FAMILY = ("adv_scene+bench_traj", "bench_scene+adv_traj", "adv_scene+adv_traj", "A_clean")
+EVAL_ABLATION = {"benchmark_clean": "A_clean", "benchmark_noise10": "benchmark_noise10",
+                 "benchmark_noise20": "benchmark_noise20", "adversarial": "adversarial",
+                 "adversarial_noise10": "adversarial_noise10"}
+EVAL_UNDISTORT = ("distorted_raw", "undistorted")
+# (render kind, (scene seed, trajectory seed), translation step) of each
+# rendered sequence; A_clean is phase 4g's robustness sequence
+EVAL_RENDER = {"adv_scene+bench_traj": ("adv_bench", (100, 0), 0.05),
+               "bench_scene+adv_traj": ("bench_adv", (0, 0), 0.05),
+               "adv_scene+adv_traj": ("adv_adv", (100, 0), 0.05),
+               "adversarial": ("adv_adv", (1, 1), 0.05)}
+# the order 4j runs its configurations in
+EVAL_ORDER = ("reference_parity", "predict_only", "robust", "default_5pt", "ba_off",
+              "ba_on_regate3", "default")
 RENDER_CHUNK = 30        # frames per rendering job
 READBACK_FROM, READBACK_FRAMES = 40, 20  # phase 4: add_frame's readback, tracking frames
 # phase 4g, the paths the scene generators and camera tools open; each at the
@@ -402,17 +461,29 @@ def _tie_inputs(seed, dev="cuda"):
 def _render(job):
     """Frames lo..hi-1 of a synthetic sequence (runs in a pool process):
     ``kind`` "bench" is the benchmark's room and trajectory, "planar" the
-    single-wall scene and its wall-facing trajectory."""
+    single-wall scene and its wall-facing trajectory; the JAX package's
+    scene families (phase 4j) pair ``adversarial_scene`` (repeated texture)
+    and the benchmark room with the benchmark trajectory and
+    ``make_adversarial_trajectory`` (translation, then rotation sweeps, then
+    low-parallax creep): "adv_bench", "bench_adv" and "adv_adv", ``seed``
+    then (scene seed, trajectory seed)."""
     kind, seed, n, step, lo, hi = job
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
     from monocular_visual_odometry_tpu_torch.data import synthetic as syn
+    if kind == "bench":
+        return syn.render_sequence_arrays(n, seed=seed, height=H, width=W,
+                                          translation_step=step, span=(lo, hi))
     if kind == "planar":
         scene, poses = syn.planar_scene(), syn.make_planar_trajectory(n)
-        return np.stack([syn.render_frame(poses[i], scene, K_TRUE, H, W)
-                         for i in range(lo, hi)]), poses
-    return syn.render_sequence_arrays(n, seed=seed, height=H, width=W, translation_step=step,
-                                      span=(lo, hi))
+    else:
+        scene_seed, traj_seed = seed
+        scene = (syn.default_scene(scene_seed) if kind == "bench_adv"
+                 else syn.adversarial_scene(scene_seed))
+        poses = (syn.make_trajectory(n, traj_seed, translation_step=step) if kind == "adv_bench"
+                 else syn.make_adversarial_trajectory(n, seed=traj_seed, translation_step=step))
+    return np.stack([syn.render_frame(poses[i], scene, K_TRUE, H, W)
+                     for i in range(lo, hi)]), poses
 
 
 @contextlib.contextmanager
@@ -890,13 +961,14 @@ def _phase_4d_init(cfg5, frames, five):
     for name, ms, count in ks[:6]:
         print(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}", flush=True)
 
-    # the Jacobi eigh at the solver's shapes: per call, kernels and device ms
+    # the Jacobi eigh at the solver's shapes and dtype (its Gram matrices are
+    # float64): per call, kernels and device ms
     n_e = max(cfg5.ransac.n_hypotheses // 4, 8)
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     eigh_rows = {}
     for tag, shape in (("9x9", (n_e, 9, 9)), ("10x10", (n_e, 8, 10, 10))):
-        X = torch.randn(shape, generator=g, device="cuda")
+        X = torch.randn(shape, generator=g, device="cuda", dtype=torch.float64)
         M = X @ X.mT
         lie.eigh(M)
         torch.cuda.synchronize()
@@ -908,7 +980,8 @@ def _phase_4d_init(cfg5, frames, five):
         eigh_rows[tag] = dict(shape=list(shape), kernels=sum(c for _, _, c in ek),
                               device_ms=sum(ms for _, ms, _ in ek), graph_ms=graph_ms,
                               eager_ms=eager_ms)
-        print(f"4d: lie.eigh (Jacobi, {lie._EIGH_SWEEPS[torch.float32]} sweeps) on {shape}: "
+        print(f"4d: lie.eigh (Jacobi, {lie._EIGH_SWEEPS[torch.float64]} sweeps) on {shape} "
+              f"float64: "
               f"{eigh_rows[tag]['kernels']} device kernels per call, device busy "
               f"{eigh_rows[tag]['device_ms']:.3f} ms (profiled); per call {graph_ms:.3f} ms "
               f"replayed in a graph, {eager_ms:.3f} ms eager (CUDA events)", flush=True)
@@ -1734,7 +1807,9 @@ def _phase_4i_5pt(cfg, cam, frames, fresh):
     # init's eigh the Jacobi) against the eager body over the same steps
     cfg5 = cfg.replace(ransac=dataclasses.replace(cfg.ransac, essential_minimal="5pt"))
     nb = GENERAL_SIZES[-1]
-    V.run_sequences_general(cfg5, cam, fresh(nb), frames[:nb, :1], height=H, width=W)
+    _, capture_gib = _with_memory(
+        f"4i: capture of the five-point general body at B={nb}",
+        lambda: V.run_sequences_general(cfg5, cam, fresh(nb), frames[:nb, :1], height=H, width=W))
     prog = V._batched_program("general", cfg5, cam, nb, H, W, frames.device)
     sts = fresh(nb)
     torch.cuda.synchronize()
@@ -1751,7 +1826,7 @@ def _phase_4i_5pt(cfg, cam, frames, fresh):
     init = [int(np.argmax(stage[:, b] == S.STAGE_TRACKING)) for b in range(nb)]
     r5 = dict(wall_s=wall, fps=nb * n / wall, ms_per_step=1e3 * wall / n, launches=launches,
               ba_calls=ba_calls, replays=replays, capture_s=(prog.warmup_s, prog.capture_s),
-              init=init, n_fail=(~ok).sum(0).tolist(), stage=final.stage.cpu().tolist(),
+              capture_gib=capture_gib, init=init, n_fail=(~ok).sum(0).tolist(), stage=final.stage.cpu().tolist(),
               used_homography_at_init=[bool(outs.used_homography[i, b])
                                        for b, i in enumerate(init)])
     print(f"4i five-point general B={nb}: {n} steps in {wall:.2f} s = {r5['fps']:.2f} fps "
@@ -1818,9 +1893,12 @@ def _phase_4i(cfg, batch_seqs, single, rates):
     worst_single_ate = max(r["ate"] for r in ref)
     # one throw-away step per B: one-time set-up (batched solvers) and each
     # B's capture off the clock
-    capture_b = {}
+    capture_b, capture_gib = {}, {}
     for nb in GENERAL_SIZES:
-        V.run_sequences_general(cfg, cam, fresh(nb), frames[:nb, :1], height=H, width=W)
+        _, capture_gib[nb] = _with_memory(
+            f"4i: capture of the general body at B={nb}",
+            lambda: V.run_sequences_general(cfg, cam, fresh(nb), frames[:nb, :1], height=H,
+                                            width=W))
         prog = V._batched_program("general", cfg, cam, nb, H, W, torch.device("cuda"))
         capture_b[nb] = (prog.warmup_s, prog.capture_s)
     print(f"4i: warm-up / capture seconds of the general body per B: "
@@ -1848,7 +1926,7 @@ def _phase_4i(cfg, batch_seqs, single, rates):
                     if (is_kf[:, b] != ref[b]["is_kf"]).any() else None for b in range(nb)]
         init = [int(np.argmax(stage[:, b] == S.STAGE_TRACKING)) for b in range(nb)]
         r = dict(wall_s=wall, fps=nb * n / wall, ms_per_step=1e3 * wall / n, launches=launches,
-                 capture_s=capture_b[nb],
+                 capture_s=capture_b[nb], capture_gib=capture_gib[nb],
                  ba_calls=ba_calls, n_fail=(~ok).sum(0).tolist(),
                  stage=final.stage.cpu().tolist(), init=init,
                  ate=[metrics.ate_rmse(poses[:, b], batch_seqs[b][1]) for b in range(nb)])
@@ -2002,6 +2080,371 @@ def _phase_4i(cfg, batch_seqs, single, rates):
     return runs
 
 
+def _mem():
+    """(reserved, allocated) card memory, GiB."""
+    return torch.cuda.memory_reserved() / 2**30, torch.cuda.memory_allocated() / 2**30
+
+
+def _with_memory(tag, fn):
+    """``fn()`` (a call that captures a program), the card's memory before
+    and after it printed. Returns (fn's result, reserved GiB it added)."""
+    torch.cuda.synchronize()
+    before = _mem()
+    out = fn()
+    torch.cuda.synchronize()
+    after = _mem()
+    print(f"{tag}: card memory reserved {before[0]:.3f} -> {after[0]:.3f} GiB "
+          f"({after[0] - before[0]:+.3f}), allocated {before[1]:.3f} -> {after[1]:.3f} GiB "
+          f"({after[1] - before[1]:+.3f})", flush=True)
+    return out, after[0] - before[0]
+
+
+def _protocol():
+    """``tests/eval_protocol.py`` (the A/B protocol and gate, the evaluation
+    configurations), shared with ``tests/test_torch_profiles.py``."""
+    tests = str(Path(ROOT) / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import eval_protocol
+
+    return eval_protocol
+
+
+def _ab_job(chart):
+    """``eval_protocol.fivepoint_ab`` on the CPU in a pool process, one torch thread:
+    ``chart`` "lapack" (the CPU's route) or "jacobi" (the card's route forced
+    on CPU tensors: ``lie.eigh_jacobi`` and ``lie.svd3_jacobi``)."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    torch.set_num_threads(1)
+    from monocular_visual_odometry_tpu_torch.ops import lie
+    if chart == "jacobi":
+        lie.card_route = lambda t: True
+    return _protocol().fivepoint_ab("cpu")
+
+
+def _fmt_ab(r):
+    return (f"rot med {r['rot_err_deg_med']:.4f} p90 {r['rot_err_deg_p90']:.4f}, t-dir med "
+            f"{r['t_dir_err_deg_med']:.4f} p90 {r['t_dir_err_deg_p90']:.4f}, fails "
+            f"{r['fail_count']}/{r['seeds']}")
+
+
+def _phase_4j_ab(card, card_s, cpu):
+    """Phase 4j (a): the five-point A/B on the card (``card``, eager, in
+    ``card_s`` seconds) beside the CPU's two routes (``cpu``: chart ->
+    :func:`_ab_job`'s result) and FIVEPOINT_AB_r04.json; the gate against
+    CPU LAPACK, and the CPU's forced Jacobi against LAPACK (raises if the
+    card misses). Returns the record."""
+    P = _protocol()
+    with open(Path(ROOT) / "FIVEPOINT_AB_r04.json") as fh:
+        jax_ab = json.load(fh)
+    print(f"4j (a) five-point A/B (profile_fivepoint_ab.py: {P.AB_SEEDS} seeds, {P.AB_HYP} "
+          f"hypotheses, 200 points, 0.5 px): the card's route (Jacobi eigh and 3x3 SVD) in "
+          f"{card_s:.1f} s, beside the CPU (LAPACK), the CPU with the card's route forced, "
+          f"and JAX (FIVEPOINT_AB_r04.json):", flush=True)
+    for k in card:
+        print(f"  {k}:", flush=True)
+        for name, r in (("card", card[k]), ("CPU LAPACK", cpu["lapack"][k]),
+                        ("CPU Jacobi", cpu["jacobi"][k]), ("JAX", jax_ab[k])):
+            print(f"    {name:10s} {_fmt_ab(r)}", flush=True)
+        if k.endswith("5pt"):
+            print(f"    rotation error per seed, card {[round(v, 3) for v in card[k]['rot_each']]}"
+                  f", CPU LAPACK {[round(v, 3) for v in cpu['lapack'][k]['rot_each']]}",
+                  flush=True)
+        # the same errors read on the nearest rotation: a float32 R's ~1e-6
+        # departure from the group moves the trace's reading near 0 deg
+        orth = {name: r[k]["rot_orth_each"] for name, r in
+                (("card", card), ("CPU LAPACK", cpu["lapack"]), ("CPU Jacobi", cpu["jacobi"]))}
+        print("    nearest rotation: median " + ", ".join(
+            f"{name} {np.median(v):.4f}" for name, v in orth.items())
+              + f"; per seed, card against CPU LAPACK up to "
+              f"{max(abs(a - b) for a, b in zip(orth['card'], orth['CPU LAPACK'])):.4f} deg",
+              flush=True)
+    # at outlier fraction 0 every route picks the same model: the card's
+    # nearest rotation is the CPU's, seed by seed (ROADMAP §3 item 36)
+    apart = {k: max(abs(a - b) for a, b in zip(card[k]["rot_orth_each"],
+                                               cpu["lapack"][k]["rot_orth_each"]))
+             for k in card if k.startswith("outliers=0.0:")}
+    misses = P.ab_gate(card, cpu["lapack"])
+    cpu_misses = P.ab_gate(cpu["jacobi"], cpu["lapack"])
+    g = P.AB_GATE
+    print(f"4j (a) gate (5pt, every fraction; median rotation <= {g['ratio']} x LAPACK's "
+          f"+ {g['rot_deg']} deg, median t-dir <= {g['ratio']} x LAPACK's + "
+          f"{g['t_deg']} deg, failures <= LAPACK's + {g['fails']}): card against "
+          f"CPU LAPACK misses {misses or 'none'}; CPU Jacobi against CPU LAPACK misses "
+          f"{cpu_misses or 'none'}; at fraction 0 the card's nearest rotation per seed within "
+          f"{AB_ORTH_TOL} deg of CPU LAPACK's: largest gap "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in apart.items())}", flush=True)
+    if misses:
+        raise AssertionError(f"4j (a): the card's five-point chart misses the A/B gate at {misses}")
+    if not max(apart.values()) <= AB_ORTH_TOL:
+        raise AssertionError(f"4j (a): at outlier fraction 0 the card's rotation parts from the "
+                             f"CPU's by {apart} deg on the nearest rotation")
+    return dict(card=card, cpu_lapack=cpu["lapack"], cpu_jacobi=cpu["jacobi"], card_s=card_s,
+                cpu_jacobi_misses=cpu_misses, orth_apart_at_0=apart)
+
+
+def _eval_refs():
+    """The JAX rows of phase 4j: {(config, sequence): [(label, row)]}, each
+    row's mean, min and max ATE and mean final drift (% of the path), median
+    init frame (None where not recorded) and failed seeds, from
+    ROBUSTNESS_r05.json and BA_ABLATION_r05.json. Its keys are the rows 4j
+    runs, in the order each configuration runs its sequences."""
+    with open(Path(ROOT) / "ROBUSTNESS_r05.json") as fh:
+        rob = json.load(fh)
+    with open(Path(ROOT) / "BA_ABLATION_r05.json") as fh:
+        abl = json.load(fh)
+    norm = lambda r: dict(mean=r["ate_pct_mean"], min=r["ate_pct_min"], max=r["ate_pct_max"],
+                          drift=r["drift_final_pct_mean"], init=r["init_frame_median"],
+                          failed=r["failed_seeds"])
+    abl_row = lambda r: dict(mean=r["ate_pct_mean"], min=min(r["ate_pct_each"]),
+                             max=max(r["ate_pct_each"]), drift=r["drift_final_pct_mean"],
+                             init=None, failed=r["failed_seeds"])
+    fam = lambda p, s: norm(rob["families"]["A_benchmark_clean"][p] if s == "A_clean" else
+                            rob["families"]["B_adversarial"][s][p])
+    refs = {}
+    for p in ("reference_parity", "predict_only", "default", "robust"):
+        for s in EVAL_FAMILY:
+            refs[(p, s)] = [(f"ROBUSTNESS_r05 {p}", fam(p, s))]
+    refs[("default", "A_clean")].append(
+        ("BA_ABLATION_r05 ba_on", abl_row(abl["rows"]["benchmark_clean"]["ba_on"])))
+    for s in EVAL_FAMILY:
+        refs[("default_5pt", s)] = (
+            [("ROBUSTNESS_r05 fivepoint_e2e 5pt", norm(rob["fivepoint_e2e"]["5pt"]))]
+            if s == "adv_scene+adv_traj" else
+            [("ROBUSTNESS_r05 default (8pt; JAX has no 5pt row here)", fam("default", s))])
+    for row, seq in EVAL_ABLATION.items():
+        for v, p in (("ba_on", "default"), ("ba_off", "ba_off"),
+                     ("ba_on_regate3", "ba_on_regate3")):
+            if (p, seq) not in refs:
+                refs[(p, seq)] = [(f"BA_ABLATION_r05 {v}", abl_row(abl["rows"][row][v]))]
+    for s in EVAL_UNDISTORT:
+        refs[("default", s)] = [("ROBUSTNESS_r05 undistortion", norm(rob["undistortion"][s]))]
+    return refs
+
+
+def _eval_sequences(clean_seq, rendered):
+    """Phase 4j's frames and ground truth by name: the rendered family
+    sequences, family A's clean sequence, the ablation's noise rows
+    (``perturb_frames`` over the whole stack, as the JAX script draws them)
+    and the undistortion rows (profile_robustness_r5.py's lens, distorted
+    then undistorted with the true one)."""
+    from monocular_visual_odometry_tpu_torch.data import synthetic as syn
+    from monocular_visual_odometry_tpu_torch.data import tools
+
+    t0 = time.perf_counter()
+    seqs = dict(rendered)
+    clean, gt_a = clean_seq
+    seqs["A_clean"] = (clean, gt_a)
+    adv, gt_b = seqs["adversarial"]
+    seqs["benchmark_noise10"] = (syn.perturb_frames(clean, "noise", 10.0), gt_a)
+    seqs["benchmark_noise20"] = (syn.perturb_frames(clean, "noise", 20.0), gt_a)
+    seqs["adversarial_noise10"] = (syn.perturb_frames(adv, "noise", 10.0), gt_b)
+    distorted = _per_frame(lambda fs: np.stack([
+        tools.distort_image(f.astype(np.float32), K_TRUE, EVAL_DIST) for f in fs]),
+        clean).astype(np.float32)
+    undistorted = _per_frame(lambda fs: np.stack([
+        tools.undistort_image(f, K_TRUE, EVAL_DIST) for f in fs]), distorted).astype(np.float32)
+    seqs["distorted_raw"], seqs["undistorted"] = (distorted, gt_a), (undistorted, gt_a)
+    print(f"4j: perturbed, distorted and undistorted {5 * EVAL_FRAMES} frames in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return seqs
+
+
+def _eval_program(name, c, cam, streams, seqs):
+    """One configuration's streams through ``run_sequences_general`` on the
+    card, in batches of one B (at most EVAL_MAX_B), each batch from fresh
+    ``init_state(c, seed)`` states over its sequences' EVAL_FRAMES frames;
+    the first batch's program captured by a throw-away step (its memory
+    printed); 3 matcher launches, 1 ``ba_update_state`` call (0 with BA off)
+    and 1 replay per step. Returns (per-stream records, the program's
+    record)."""
+    from monocular_visual_odometry_tpu_torch.models import ba as BA
+    from monocular_visual_odometry_tpu_torch.models import state as S
+    from monocular_visual_odometry_tpu_torch.models import vo as V
+    from monocular_visual_odometry_tpu_torch.ops.cuda import hamming as HM
+    from monocular_visual_odometry_tpu_torch.utils import metrics
+
+    n_batches = -(-len(streams) // EVAL_MAX_B)
+    nb = len(streams) // n_batches
+    if nb * n_batches != len(streams):
+        raise AssertionError(f"4j {name}: {len(streams)} streams do not split into batches of "
+                             f"one B")
+    fresh = lambda batch: S.stack_states([S.init_state(c, seed, "cuda") for _, seed in batch])
+    n = EVAL_FRAMES
+    records, walls, capture_gib = [], [], 0.0
+    for i in range(n_batches):
+        batch = streams[i * nb:(i + 1) * nb]
+        frames = torch.from_numpy(np.stack([seqs[s][0][:n].astype(np.float32)
+                                            for s, _ in batch])).cuda()
+        if i == 0:
+            _, capture_gib = _with_memory(
+                f"4j {name}: capture of the general body at B={nb}",
+                lambda: V.run_sequences_general(c, cam, fresh(batch), frames[:, :1], height=H,
+                                                width=W))
+        prog = V._batched_program("general", c, cam, nb, H, W, frames.device)
+        sts = fresh(batch)
+        torch.cuda.synchronize()
+        HM.hamming_nn_top2.launches = 0
+        BA.ba_update_state.calls = 0
+        replays = prog.replays
+        t0 = time.perf_counter()
+        final, outs = V.run_sequences_general(c, cam, sts, frames, height=H, width=W)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        replays = prog.replays - replays
+        launches, ba_calls = HM.hamming_nn_top2.launches, BA.ba_update_state.calls
+        want_ba = n if c.ba.enabled else 0
+        if replays != n or launches != 3 * n or ba_calls != want_ba:
+            raise AssertionError(f"4j {name} batch {i}: {replays} replays, {launches} matcher "
+                                 f"launches, {ba_calls} ba_update_state calls in {n} steps "
+                                 f"(expected {n}, {3 * n}, {want_ba})")
+        poses = outs.T_w_c.cpu().numpy()
+        stage, ok = outs.stage.cpu().numpy(), outs.tracking_ok.cpu().numpy()
+        used_h = outs.used_homography.cpu().numpy()
+        final_stage = final.stage.cpu().tolist()
+        del frames, final, outs
+        for b, (s, seed) in enumerate(batch):
+            gt = seqs[s][1][:n]
+            est = poses[:, b]
+            length = metrics.trajectory_length(gt)
+            tracking = stage[:, b] == S.STAGE_TRACKING
+            init = int(np.argmax(tracking)) if tracking.any() else None
+            good = bool(np.isfinite(est).all()) and final_stage[b] == S.STAGE_TRACKING
+            records.append(dict(
+                seq=s, seed=seed, failed=not good, init=init,
+                used_h=None if init is None else bool(used_h[init, b]),
+                n_fail=int((tracking & ~ok[:, b]).sum()),
+                ate=100 * metrics.ate_rmse(est, gt) / length if good else None,
+                drift=100 * float(metrics.drift_curve(est, gt)[-1]) / length if good else None))
+    prog = V._batched_program("general", c, cam, nb, H, W, torch.device("cuda"))
+    wall = sum(walls)
+    rec = dict(streams=len(streams), batch=nb, batches=n_batches, wall_s=wall,
+               ms_per_step=1e3 * wall / (n * n_batches), fps=len(streams) * n / wall,
+               capture_s=(prog.warmup_s, prog.capture_s), capture_gib=capture_gib)
+    print(f"4j {name}: {len(streams)} streams x {n} frames in {n_batches} batch(es) of B={nb}: "
+          f"{wall:.2f} s = {rec['fps']:.2f} fps aggregate, {rec['ms_per_step']:.1f} ms per "
+          f"step; warm-up / capture {_fmt_secs(rec['capture_s'])} s; {3 * n} matcher launches, "
+          f"{n if c.ba.enabled else 0} ba_update_state calls and {n} replays per batch",
+          flush=True)
+    return records, rec
+
+
+def _eval_row(name, seq, rows, refs):
+    """A row's summary (JAX's ``evaluate`` fields), printed beside its JAX
+    rows; returns (summary, the gates it misses)."""
+    ates = [r["ate"] for r in rows if not r["failed"]]
+    drifts = [r["drift"] for r in rows if not r["failed"]]
+    inits = [r["init"] for r in rows if r["init"] is not None]
+    failed = [r["seed"] for r in rows if r["failed"]]
+    row = dict(ate_mean=float(np.mean(ates)) if ates else None,
+               ate_min=float(np.min(ates)) if ates else None,
+               ate_max=float(np.max(ates)) if ates else None,
+               ate_each=ates, drift_mean=float(np.mean(drifts)) if drifts else None,
+               init_median=int(np.median(inits)) if inits else None, failed=failed,
+               n_fail=[r["n_fail"] for r in rows],
+               e_at_init=sum(r["used_h"] is False for r in rows))
+    fmt = lambda v: "n/a" if v is None else f"{v:.2f}"
+    print(f"4j {name} | {seq}: port ATE mean {fmt(row['ate_mean'])}% (min {fmt(row['ate_min'])}, "
+          f"max {fmt(row['ate_max'])}; each {[round(a, 2) for a in ates]}), final drift mean "
+          f"{fmt(row['drift_mean'])}%, init frame median {row['init_median']} (each "
+          f"{[r['init'] for r in rows]}), failed seeds {failed}, tracking failures per seed "
+          f"{row['n_fail']}, E won at init on {row['e_at_init']} of {len(rows)} streams",
+          flush=True)
+    misses = []
+    for label, j in refs:
+        print(f"    JAX {label}: ATE mean {fmt(j['mean'])}% (min {fmt(j['min'])}, max "
+              f"{fmt(j['max'])}), final drift mean {fmt(j['drift'])}%, init frame median "
+              f"{j['init']}, failed seeds {j['failed']}", flush=True)
+        if len(failed) != j["failed"]:
+            misses.append(f"{len(failed)} failed seeds against JAX's {j['failed']} ({label})")
+        if row["ate_mean"] is not None and not row["ate_mean"] <= j["max"] + EVAL_BAND_PP:
+            misses.append(f"mean ATE {row['ate_mean']:.2f}% above JAX's max {j['max']}% + "
+                          f"{EVAL_BAND_PP} pp ({label})")
+    return row, misses
+
+
+def _phase_4j(cfg, clean_seq, rendered):
+    """Phase 4j, the JAX package's evaluation configurations on the card
+    (see the module docstring). Returns the record."""
+    from monocular_visual_odometry_tpu_torch.models import vo as V
+
+    t_phase = time.perf_counter()
+    # the CPU's two A/B routes in processes of their own, beside the card's
+    # work; the card's A/B first
+    ex = ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        with _one_blas_thread():
+            pool_ab = {chart: ex.submit(_ab_job, chart) for chart in ("lapack", "jacobi")}
+        card_ab = _protocol().fivepoint_ab("cuda")
+        card_s = time.perf_counter() - t_phase
+        print(f"4j: the card's A/B done at {card_s:.1f} s", flush=True)
+        seqs = _eval_sequences(clean_seq, rendered)
+        rows, programs, misses, e_at_init = _phase_4j_sweep(cfg, seqs, t_phase)
+        ab = _phase_4j_ab(card_ab, card_s, {chart: f.result() for chart, f in pool_ab.items()})
+    finally:
+        ex.shutdown(cancel_futures=True)
+    print(f"4j: phase 4j took {time.perf_counter() - t_phase:.1f} s; rows missing their gate: "
+          f"{misses or 'none'}", flush=True)
+    if misses:
+        raise AssertionError(f"4j: {len(misses)} row gate(s) missed: {misses}")
+    return dict(ab=ab, rows={f"{p} | {s}": r for (p, s), r in rows.items()}, programs=programs,
+                e_at_init=e_at_init)
+
+
+def _phase_4j_sweep(cfg, seqs, t_phase):
+    """Phase 4j (b): every configuration's rows through the general batched
+    step, each row printed beside its JAX rows. Returns (rows, programs,
+    the gates missed)."""
+    from monocular_visual_odometry_tpu_torch.models import vo as V
+
+    # the programs earlier phases captured are released first (each keeps its
+    # graph's pool), then each configuration's after its rows
+    torch.cuda.synchronize()
+    held = _mem()
+    n_released = V.release_batched()
+    torch.cuda.empty_cache()
+    print(f"4j: {n_released} batched programs of phases 4e and 4i held: card memory reserved "
+          f"{held[0]:.3f} GiB, allocated {held[1]:.3f} GiB; released: reserved "
+          f"{_mem()[0]:.3f} GiB, allocated {_mem()[1]:.3f} GiB", flush=True)
+    configs = _protocol().eval_configs(cfg)
+    refs = _eval_refs()
+    cam = V.VOEngine(cfg, H, W, device="cuda").cam
+    rows, programs, misses = {}, {}, []
+    for name in EVAL_ORDER:
+        c = configs[name]
+        streams = [(s, seed) for p, s in refs if p == name for seed in EVAL_SEEDS]
+        records, programs[name] = _eval_program(name, c, cam, streams, seqs)
+        for seq in dict.fromkeys(s for s, _ in streams):
+            row, miss = _eval_row(name, seq, [r for r in records if r["seq"] == seq],
+                                  refs[(name, seq)])
+            rows[(name, seq)] = row
+            misses += [f"{name} | {seq}: {m}" for m in miss]
+        before = _mem()
+        V.release_batched()
+        torch.cuda.empty_cache()
+        print(f"4j {name}: program released: card memory reserved {before[0]:.3f} -> "
+              f"{_mem()[0]:.3f} GiB; at {time.perf_counter() - t_phase:.1f} s", flush=True)
+    # where E won at init: the five-point program against the 8-point default
+    # over the same sequences and seeds
+    e5 = sum(rows[("default_5pt", s)]["e_at_init"] for s in EVAL_FAMILY)
+    e8 = sum(rows[("default", s)]["e_at_init"] for s in EVAL_FAMILY)
+    n_fam = len(EVAL_FAMILY) * len(EVAL_SEEDS)
+    e_at_init = dict(five_point=e5, eight_point=e8, streams=n_fam)
+    e_all = sum(r["e_at_init"] for (p, _), r in rows.items() if p != "default_5pt")
+    n_all = sum(len(r["n_fail"]) for (p, _), r in rows.items() if p != "default_5pt")
+    print(f"4j: the init went through E on {e5} of {n_fam} five-point streams and on {e8} of "
+          f"{n_fam} eight-point streams of the same sequences and seeds (default config); on "
+          f"{e_all} of {n_all} eight-point streams of every program", flush=True)
+    total = sum(p["capture_gib"] for p in programs.values())
+    print(f"4j: the sweep's {len(programs)} configurations' programs added {total:.3f} GiB of "
+          f"reserved card memory at capture together (each released after its rows); after the "
+          f"sweep: reserved {_mem()[0]:.3f} GiB, allocated {_mem()[1]:.3f} GiB, peak reserved "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}", flush=True)
+    return rows, programs, misses, e_at_init
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2052,6 +2495,9 @@ def main() -> int:
     main_shapes = [("init", 1024, 1024, 100.0, False),
                    ("track", 1536, 1024, 50.0, True),
                    ("keyframe", 1024, 1024, 100.0, False),
+                   # the tracking call without the union gate (the profiles
+                   # reference_parity and predict_only, phase 4j)
+                   ("track_no_union", 1536, 1024, 50.0, False),
                    # phase 4g's cfg6 (1500 keypoints: the two-buffer ring, a
                    # 476-point last stage) and planar width (512 keypoints)
                    ("cfg6_init_keyframe", 1500, 1500, 100.0, False),
@@ -2236,14 +2682,21 @@ def main() -> int:
     elapsed("phase 4")
     # ---- 4. main path: the default config (BA on), then BA off, then 5pt ---
     t0 = time.perf_counter()
-    (frames, gt), *batch_seqs, robust_seq, chain_seq, planar_seq, seq18 = _render_all(
+    rendered = _render_all(
         [("bench", 0, N_FRAMES, 0.04)]
         + [("bench", seed, BATCH_FRAMES, 0.05) for seed in range(BATCH_SEQS)]
         + [("bench", 0, ROBUST_FRAMES, 0.05), ("bench", 0, CHAIN_FRAMES, 0.05),
-           ("planar", 0, PLANAR_FRAMES, 0.0), ("bench", 0, DIST_FRAMES, 0.05)])
+           ("planar", 0, PLANAR_FRAMES, 0.0), ("bench", 0, DIST_FRAMES, 0.05)]
+        + [(kind, seed, EVAL_FRAMES, step) for kind, seed, step in EVAL_RENDER.values()])
+    (frames, gt), batch_seqs = rendered[0], rendered[1:1 + BATCH_SEQS]
+    robust_seq, chain_seq, planar_seq, seq18 = rendered[1 + BATCH_SEQS:5 + BATCH_SEQS]
+    # phase 4j's scene families; its clean family A is 4g's robustness sequence
+    eval_rendered = dict(zip(EVAL_RENDER, rendered[5 + BATCH_SEQS:]))
+    assert ROBUST_FRAMES == EVAL_FRAMES
     print(f"rendered {N_FRAMES} + {BATCH_SEQS} x {BATCH_FRAMES} + {ROBUST_FRAMES} + "
-          f"{CHAIN_FRAMES} + {PLANAR_FRAMES} (planar) + {DIST_FRAMES} frames in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{CHAIN_FRAMES} + {PLANAR_FRAMES} (planar) + {DIST_FRAMES} + {len(EVAL_RENDER)} x "
+          f"{EVAL_FRAMES} (4j's scene families) frames in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     cfg = VOConfig()
     cfg_no_ba = cfg.replace(ba=dataclasses.replace(cfg.ba, enabled=False))
     cfg_5pt = cfg.replace(ransac=dataclasses.replace(cfg.ransac, essential_minimal="5pt"))
@@ -2454,10 +2907,12 @@ def main() -> int:
     frames_b = torch.from_numpy(np.stack([seq[BATCH_WARM:] for seq, _ in batch_seqs])).cuda()
     # one throw-away batched step per B: one-time set-up (batched solvers) and
     # each B's capture off the clock
-    capture_b = {}
+    capture_b, capture_gib = {}, {}
     for nb in BATCH_SIZES:
-        V.run_sequences_batched(cfg, cam, S.stack_states(warm[:nb]), frames_b[:nb, :1],
-                                height=H, width=W)
+        _, capture_gib[nb] = _with_memory(
+            f"4e: capture of the batched body at B={nb}",
+            lambda: V.run_sequences_batched(cfg, cam, S.stack_states(warm[:nb]),
+                                            frames_b[:nb, :1], height=H, width=W))
         prog = V._batched_program("tracking", cfg, cam, nb, H, W, torch.device("cuda"))
         capture_b[nb] = (prog.warmup_s, prog.capture_s)
     print(f"4e: warm-up / capture seconds of the batched body per B: "
@@ -2486,7 +2941,7 @@ def main() -> int:
         kf_split = [int(np.argmax(is_kf[:, b] != single[b]["is_kf"]))
                     if (is_kf[:, b] != single[b]["is_kf"]).any() else None for b in range(nb)]
         r = dict(batch=nb, wall_s=wall, fps=nb * n_steps / wall, ms_per_step=1e3 * wall / n_steps,
-                 capture_s=capture_b[nb],
+                 capture_s=capture_b[nb], capture_gib=capture_gib[nb],
                  launches=launches, ba_calls=ba_calls, n_fail=(~ok).sum(0).tolist(),
                  stage=stages, ate=[metrics.ate_rmse(poses[:, b], batch_seqs[b][1][BATCH_WARM:])
                                     for b in range(nb)],
@@ -2643,6 +3098,9 @@ def main() -> int:
     general = _phase_4i(cfg, batch_seqs, single, dict(
         single=single_fps_seq, tracking=batched[BATCH_SIZES[-1]]["fps"]))
 
+    elapsed("phase 4j")
+    evaluation = _phase_4j(cfg, robust_seq, eval_rendered)
+
     elapsed("phase 5")
     # ---- 5. kernels line and device line ---------------------------------
     track = shape_rows[1]
@@ -2680,6 +3138,10 @@ def main() -> int:
         "general_launches": {str(nb): r["launches"] for nb, r in general.items()},
         "general_steps": BATCH_FRAMES,
         "general_fps": {str(nb): r["fps"] for nb, r in general.items()},
+        "eval_programs": {name: {k: p[k] for k in ("streams", "batch", "ms_per_step", "fps",
+                                                    "capture_s", "capture_gib")}
+                          for name, p in evaluation["programs"].items()},
+        "eval_e_at_init": evaluation["e_at_init"],
         "single_stream_fps_sum": single_fps_sum,
         "graph_route": dict(
             routes, waits_per_frame=graph_waits, five_point=dict(routes_5pt, **init_5pt),
@@ -2687,11 +3149,13 @@ def main() -> int:
                      for k, r in profile.items()},
             batched={str(nb): {k: r.get(k) for k in (
                 "fps", "eager_fps", "ms_per_step", "eager_ms_per_step", "kernels_per_step",
-                "eager_kernels_per_step", "busy_share", "eager_busy_share", "capture_s")}
+                "eager_kernels_per_step", "busy_share", "eager_busy_share", "capture_s",
+                "capture_gib")}
                 for nb, r in batched.items()},
             general={str(nb): {k: r.get(k) for k in (
                 "fps", "eager_fps", "ms_per_step", "eager_ms_per_step", "kernels_per_step",
-                "eager_kernels_per_step", "busy_share", "eager_busy_share", "capture_s")}
+                "eager_kernels_per_step", "busy_share", "eager_busy_share", "capture_s",
+                "capture_gib")}
                 for nb, r in general.items()}),
         "card": card,
     }]

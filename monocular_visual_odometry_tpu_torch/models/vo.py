@@ -763,6 +763,17 @@ class StagePrograms:
 _BATCHED: dict = {}  # (kind, B, cfg, cam, H, W, device) -> CapturedStep
 
 
+def release_batched() -> int:
+    """Drops every captured batched program (JAX's ``jax.clear_caches()``):
+    each holds its graph's memory pool for good, so a sweep over
+    configurations or batch sizes releases the ones it is done with. The
+    next batched step of a released key captures anew. Returns how many
+    were dropped."""
+    n = len(_BATCHED)
+    _BATCHED.clear()
+    return n
+
+
 def _batched_program(kind: str, cfg: VOConfig, cam: Camera, b: int, height: int, width: int,
                      device) -> CapturedStep:
     """The batched body of ``kind`` ("tracking" or "general") as a

@@ -261,13 +261,14 @@ def test_add_frame_returns_the_step_output_on_the_host(sequence):
 
 def _port_files():
     return sorted((ROOT / "monocular_visual_odometry_tpu_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"]
+        [ROOT / "chip_smoke.py", ROOT / "tests" / "eval_protocol.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
 def test_port_imports_no_jax(path):
-    """No import of jax or of the JAX package anywhere in the port or in
-    chip_smoke.py, none of yaml or PIL either (the port depends on neither),
+    """No import of jax or of the JAX package anywhere in the port, in
+    chip_smoke.py or in the protocol it shares with the tests
+    (tests/eval_protocol.py), none of yaml or PIL either (the port depends on neither),
     no scipy (the port has its own rotations, blur and LM), and matplotlib
     only inside functions. Imports by name (``importlib.import_module``,
     ``__import__``) count too."""
