@@ -203,6 +203,39 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    rows of ROBUSTNESS_r05.json and BA_ABLATION_r05.json: the same failed
    seeds (0) and a mean ATE at most JAX's worst seed + 1.5 pp (JAX's own
    spread between two compiles of one program);
+   4k. the JAX repo's stage-level profiling tools (``tests/stage_protocol.py``;
+   ``profile_bisect.py``, ``profile_scan.py``, ``profile_iso.py``,
+   ``profile_ba_floor.py``, ``profile_init.py``), each piece captured as one
+   CUDA graph with fixed inputs and replayed: 20 replays timed between two
+   CUDA events, twice in turns, and 5 profiled (device kernels, busy ms and
+   matcher kernels per call, the top 5 kernels). (a) On
+   ``profile_ba_floor.py``'s state (16 frames of ``make_trajectory(16, 0,
+   0.05)``) and its next frame, with the tracking program's draws: the
+   prefixes a (features), b (+ frustum scan, union gate, candidate
+   compaction), c (+ the match), d (+ RANSAC-PnP), e (``step_track``), each
+   stage's own share as the difference of consecutive prefixes;
+   ``ba_update_state``, ``keyframe_update`` and the glue of the tracking
+   program (its two selects and its tail), beside one replay of
+   ``StagePrograms``' tracking program on the same state and frame: the
+   pieces' kernels add up to the program's within 2%, their busy time within
+   10%, no stage reads negative, the matcher runs once in c, d, e and the
+   keyframe update and twice in the program; ``ba_update_state`` at 1, 2, 4,
+   8 and 12 LM iterations with the per-iteration and fixed costs of a linear
+   fit, at 12 the kernels of phase 4c's call, and ``gather_window`` +
+   ``ba_solve`` + ``write_back`` within 10% of its busy time. (b) bench.py
+   cfg1's ``init_pair`` (frames 0 and 3 of phase 4's sequence, written as
+   PNGs and read back through the port's loader) as pieces A (features x2),
+   B (+ match), C (+ ``estimate_relative_pose``), D (the two-view estimate
+   alone on B's points) under the 8-point and five-point solvers: C must give
+   the init stage program's R, t and inliers on the same pair and draws. (c)
+   ``profile_drift_ab.py``'s BA window rows (last 5 frames, keyframe window
+   of 5 and of 8) over ``make_trajectory(150, 0, 0.05)`` and
+   ``profile_adversarial.py``'s family C (``planar_scene()`` x
+   ``make_planar_trajectory(90)``) under both selection rules, one stream
+   each through a captured general batched step: every row tracks with <= 5
+   failures, the drift rows under 3% ATE and the first two within JAX's ATE
+   + 1.5 pp, family C's init frame within 2 of JAX's 8 and its ATE at most
+   1.49% + 1.5 pp; prints the phase's seconds;
 5. prints one JSON line describing the kernels, then, as the last line, the
    device JSON.
 
@@ -285,6 +318,23 @@ EVAL_DIST = np.array([-0.30, 0.09])  # profile_robustness_r5.py's undistortion r
 # the five-point A/B's protocol and gate, and the configurations: tests/eval_protocol.py;
 # at outlier fraction 0 the card's nearest rotation per seed within this of the CPU's (deg)
 AB_ORTH_TOL = 0.01
+# phase 4k: the JAX repo's stage-level profiling tools (tests/stage_protocol.py)
+STAGE_TIMED = 20         # replays of a piece timed between two CUDA events, per turn
+STAGE_PROFILED = 5       # replays of a piece under the profiler
+PROFILE_MARKERS = 4096   # spin kernels before and after a profiled window (_markers)
+SPLIT_KERNEL_TOL, SPLIT_BUSY_TOL = 0.02, 0.10  # e + ba + keyframe + glue against the program
+BA_PARTS_TOL = 0.10      # gather_window + ba_solve + write_back against ba_update_state, busy
+# matcher launches per call where the path runs the matcher (the rest: none)
+MATCHER_PER_CALL = {"c": 1, "d": 1, "e": 1, "keyframe": 1, "program": 2, "B": 1, "C": 1}
+# profile_drift_ab.py's rows (keyframe_window, window) over make_trajectory(150, 0, 0.05);
+# JAX's ATE and final drift, % of the path (docs/PARITY.md, CPU)
+DRIFT_ROWS = ((False, 5), (True, 5), (True, 8))
+DRIFT_JAX = {(False, 5): (2.24, 8.75), (True, 5): (1.79, 3.20)}
+# profile_adversarial.py's family C: planar_scene() x make_planar_trajectory(90);
+# JAX: ROBUSTNESS_r04.json families.C_planar (both rules)
+PLANAR_C_FRAMES = 90
+PLANAR_C_JAX = dict(init=8, ate=1.49)
+PLANAR_C_INIT_TOL = 2
 # phase 4j's sequences: the four of profile_robustness_r5.py's families, the
 # ablation's rows (benchmark_clean is family A's clean sequence), the
 # undistortion rows
@@ -2099,15 +2149,19 @@ def _with_memory(tag, fn):
     return out, after[0] - before[0]
 
 
-def _protocol():
-    """``tests/eval_protocol.py`` (the A/B protocol and gate, the evaluation
-    configurations), shared with ``tests/test_torch_profiles.py``."""
+def _from_tests(name):
+    """A protocol module of ``tests/`` (it imports torch, numpy and the port
+    only), shared with the CPU tests."""
     tests = str(Path(ROOT) / "tests")
     if tests not in sys.path:
         sys.path.insert(0, tests)
-    import eval_protocol
+    return importlib.import_module(name)
 
-    return eval_protocol
+
+def _protocol():
+    """``tests/eval_protocol.py``: the A/B protocol and gate, the evaluation
+    configurations (``tests/test_torch_profiles.py``)."""
+    return _from_tests("eval_protocol")
 
 
 def _ab_job(chart):
@@ -2251,10 +2305,10 @@ def _eval_sequences(clean_seq, rendered):
     return seqs
 
 
-def _eval_program(name, c, cam, streams, seqs):
+def _eval_program(name, c, cam, streams, seqs, tag="4j", n=EVAL_FRAMES):
     """One configuration's streams through ``run_sequences_general`` on the
     card, in batches of one B (at most EVAL_MAX_B), each batch from fresh
-    ``init_state(c, seed)`` states over its sequences' EVAL_FRAMES frames;
+    ``init_state(c, seed)`` states over its sequences' first ``n`` frames;
     the first batch's program captured by a throw-away step (its memory
     printed); 3 matcher launches, 1 ``ba_update_state`` call (0 with BA off)
     and 1 replay per step. Returns (per-stream records, the program's
@@ -2268,10 +2322,9 @@ def _eval_program(name, c, cam, streams, seqs):
     n_batches = -(-len(streams) // EVAL_MAX_B)
     nb = len(streams) // n_batches
     if nb * n_batches != len(streams):
-        raise AssertionError(f"4j {name}: {len(streams)} streams do not split into batches of "
+        raise AssertionError(f"{tag} {name}: {len(streams)} streams do not split into batches of "
                              f"one B")
     fresh = lambda batch: S.stack_states([S.init_state(c, seed, "cuda") for _, seed in batch])
-    n = EVAL_FRAMES
     records, walls, capture_gib = [], [], 0.0
     for i in range(n_batches):
         batch = streams[i * nb:(i + 1) * nb]
@@ -2279,7 +2332,7 @@ def _eval_program(name, c, cam, streams, seqs):
                                             for s, _ in batch])).cuda()
         if i == 0:
             _, capture_gib = _with_memory(
-                f"4j {name}: capture of the general body at B={nb}",
+                f"{tag} {name}: capture of the general body at B={nb}",
                 lambda: V.run_sequences_general(c, cam, fresh(batch), frames[:, :1], height=H,
                                                 width=W))
         prog = V._batched_program("general", c, cam, nb, H, W, frames.device)
@@ -2296,7 +2349,7 @@ def _eval_program(name, c, cam, streams, seqs):
         launches, ba_calls = HM.hamming_nn_top2.launches, BA.ba_update_state.calls
         want_ba = n if c.ba.enabled else 0
         if replays != n or launches != 3 * n or ba_calls != want_ba:
-            raise AssertionError(f"4j {name} batch {i}: {replays} replays, {launches} matcher "
+            raise AssertionError(f"{tag} {name} batch {i}: {replays} replays, {launches} matcher "
                                  f"launches, {ba_calls} ba_update_state calls in {n} steps "
                                  f"(expected {n}, {3 * n}, {want_ba})")
         poses = outs.T_w_c.cpu().numpy()
@@ -2311,18 +2364,20 @@ def _eval_program(name, c, cam, streams, seqs):
             tracking = stage[:, b] == S.STAGE_TRACKING
             init = int(np.argmax(tracking)) if tracking.any() else None
             good = bool(np.isfinite(est).all()) and final_stage[b] == S.STAGE_TRACKING
+            drift = metrics.drift_curve(est, gt) if good else None
             records.append(dict(
                 seq=s, seed=seed, failed=not good, init=init,
                 used_h=None if init is None else bool(used_h[init, b]),
                 n_fail=int((tracking & ~ok[:, b]).sum()),
                 ate=100 * metrics.ate_rmse(est, gt) / length if good else None,
-                drift=100 * float(metrics.drift_curve(est, gt)[-1]) / length if good else None))
+                drift=100 * float(drift[-1]) / length if good else None,
+                drift_p95=100 * float(np.percentile(drift, 95)) / length if good else None))
     prog = V._batched_program("general", c, cam, nb, H, W, torch.device("cuda"))
     wall = sum(walls)
     rec = dict(streams=len(streams), batch=nb, batches=n_batches, wall_s=wall,
                ms_per_step=1e3 * wall / (n * n_batches), fps=len(streams) * n / wall,
                capture_s=(prog.warmup_s, prog.capture_s), capture_gib=capture_gib)
-    print(f"4j {name}: {len(streams)} streams x {n} frames in {n_batches} batch(es) of B={nb}: "
+    print(f"{tag} {name}: {len(streams)} streams x {n} frames in {n_batches} batch(es) of B={nb}: "
           f"{wall:.2f} s = {rec['fps']:.2f} fps aggregate, {rec['ms_per_step']:.1f} ms per "
           f"step; warm-up / capture {_fmt_secs(rec['capture_s'])} s; {3 * n} matcher launches, "
           f"{n if c.ba.enabled else 0} ba_update_state calls and {n} replays per batch",
@@ -2443,6 +2498,395 @@ def _phase_4j_sweep(cfg, seqs, t_phase):
           f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB of "
           f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}", flush=True)
     return rows, programs, misses, e_at_init
+
+
+# ---------------------------------------------------------------------------
+# phase 4k: the JAX repo's stage-level profiling tools on the card
+# (tests/stage_protocol.py), the BA window-policy A/B and planar family C
+# ---------------------------------------------------------------------------
+
+
+def _stage_protocol():
+    """``tests/stage_protocol.py``: the pieces of phase 4k
+    (``tests/test_torch_stage_protocol.py``)."""
+    return _from_tests("stage_protocol")
+
+
+def _raw_device_events(prof):
+    """[(name, ms)] of the trace's device events in the order they ran, read
+    from the profiler's raw events: ``prof.events()`` builds a Python record
+    per event, which takes seconds over phase 4k's ~10^5 events."""
+    events = sorted((e.start_ns(), e.name(), e.duration_ns() / 1e6)
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == torch.autograd.DeviceType.CUDA)
+    return [(n, ms) for _, n, ms in events]
+
+
+def _markers():
+    """PROFILE_MARKERS spin kernels (``torch.cuda._sleep``) on the stream.
+    A profile loses device records at its start (seen on an H100: from 1 to
+    over 500 of them, more in long windows and late in a long process, so
+    counts read short); marker kernels queued first and last take the loss,
+    and the counts leave them out (:func:`_without_markers`)."""
+    for _ in range(PROFILE_MARKERS):
+        torch.cuda._sleep(100)
+
+
+def _kind(name):
+    """A device event's name with the memory kind of a copy or a fill left
+    out: the profile can name it "Unknown" for some records of one graph
+    node ("Memset (Device)" and "Memset (Unknown)" are both "Memset")."""
+    return name.split(" (")[0] if name.startswith(("Memset", "Memcpy")) else name
+
+
+def _without_markers(kernels):
+    """(the kernels by name, names merged by :func:`_kind`, without the
+    markers; the markers seen)."""
+    merged = {}
+    for n, ms, c in kernels:
+        if "spin_kernel" not in n:
+            t, k = merged.get(_kind(n), (0.0, 0))
+            merged[_kind(n)] = (t + ms, k + c)
+    return (sorted(((n, t, k) for n, (t, k) in merged.items()), key=lambda r: -r[1]),
+            sum(c for n, _, c in kernels if "spin_kernel" in n))
+
+
+def _profile_replays(name, prog):
+    """STAGE_PROFILED replays of ``prog`` under the profiler, device activity
+    only, between two runs of markers. Returns (the kernels by name, their
+    sequence [(name, ms)] in the order they ran, the marker records lost). A
+    replay runs the same graph every time: unless every kernel's count is a
+    multiple of STAGE_PROFILED the profile lost records inside the replays
+    (raises)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _markers()
+        for _ in range(STAGE_PROFILED):
+            prog.replay()
+        _markers()
+        torch.cuda.synchronize()
+    events = _raw_device_events(prof)
+    seq = [(_kind(n), ms) for n, ms in events if "spin_kernel" not in n]
+    by_name = {}
+    for n, ms in seq:
+        t, c = by_name.get(n, (0.0, 0))
+        by_name[n] = (t + ms, c + 1)
+    ks = sorted(((n, t, c) for n, (t, c) in by_name.items()), key=lambda r: -r[1])
+    seen = len(events) - len(seq)
+    uneven = [(n[:60], c) for n, _, c in ks if c % STAGE_PROFILED]
+    if uneven or seen == 0:
+        raise AssertionError(f"4k: the profile of {name} lost kernel records inside its "
+                             f"replays ({seen} markers of {2 * PROFILE_MARKERS} seen; counts "
+                             f"not a multiple of {STAGE_PROFILED}: {uneven[:5]})")
+    return ks, seq, 2 * PROFILE_MARKERS - seen
+
+
+def _measure_pieces(tag, progs, reset=None):
+    """Each captured piece of ``progs`` (name -> ``CapturedStep``): the ms of
+    STAGE_TIMED replays between two CUDA events, twice in turns (in order,
+    then in reverse), and STAGE_PROFILED replays under the profiler: device
+    kernels, busy ms and matcher kernels per call, the 5 kernels that take
+    the most time. ``reset``: name -> a call that reloads that program's
+    inputs (before each turn and before its profile). Returns name -> the
+    record."""
+    reset = reset or {}
+    ms = {k: [] for k in progs}
+    for order in (list(progs), list(progs)[::-1]):
+        for k in order:
+            reset.get(k, lambda: None)()
+            ms[k].append(_events_ms(progs[k].replay, STAGE_TIMED))
+    out = {}
+    for k, prog in progs.items():
+        reset.get(k, lambda: None)()
+        ks, seq, lost = _profile_replays(k, prog)
+        out[k] = dict(
+            ms=float(np.mean(ms[k])), turns=ms[k], markers_lost=lost, seq=seq,
+            kernels=sum(c for _, _, c in ks) // STAGE_PROFILED,
+            busy_ms=sum(t for _, t, _ in ks) / STAGE_PROFILED,
+            matcher=sum(c for n, _, c in ks if "hamming_nn_top2" in n) // STAGE_PROFILED,
+            counters=dict(prog.per_call),
+            top=[(n[:70], t / STAGE_PROFILED, c / STAGE_PROFILED) for n, t, c in ks[:5]])
+    return out
+
+
+def _print_piece(tag, name, r):
+    print(f"{tag} {name}: {r['ms']:.3f} ms per call (CUDA events, {STAGE_TIMED} replays, turns "
+          f"{' / '.join(f'{v:.3f}' for v in r['turns'])}), {r['kernels']:.0f} device kernels and "
+          f"{r['busy_ms']:.3f} ms busy per call ({STAGE_PROFILED} profiled replays; "
+          f"{r['markers_lost']} marker records lost), matcher kernels {r['matcher']} per "
+          f"call (counted {r['counters']['hamming_nn_top2']})", flush=True)
+    for n, t, c in r["top"]:
+        print(f"      {t:8.4f} ms  {c:6.1f}x  {n}", flush=True)
+
+
+def _check_matcher(tag, rec):
+    """Each piece launched the matcher MATCHER_PER_CALL times per call, by
+    its counter (per replay) and in its profile."""
+    want = {k: MATCHER_PER_CALL.get(k, 0) for k in rec}
+    got = {k: (r["counters"]["hamming_nn_top2"], r["matcher"]) for k, r in rec.items()}
+    print(f"{tag}: matcher launches per call (counted, profiled) "
+          + ", ".join(f"{k} {c} / {p}" for k, (c, p) in got.items()), flush=True)
+    if any(g != (want[k], want[k]) for k, g in got.items()):
+        raise AssertionError(f"{tag}: matcher launches per call (counted, profiled) {got}, "
+                             f"expected {want}")
+
+
+def _stage_shares(tag, rec, prefixes):
+    """Each stage's own (kernels, busy ms, ms a call) from the pieces of
+    ``rec`` that are cumulative prefixes, in order, of the last one:
+    {first prefix: its own, "p->q": q minus p}. Each prefix's kernels are the
+    first of the last piece's, in the order they ran (raises otherwise: a
+    kernel is compared without its template arguments), so
+    the busy ms of a stage is read inside the last piece's profile (its
+    kernels [previous prefix, this prefix) in each replay): the busy ms of
+    separate profiles differ by up to ~0.5 ms, more than a small stage
+    takes. ms a call: the difference of the prefixes' CUDA-event times."""
+    # the same node can differ in form between two captures (a fill as a
+    # memset in one graph where another copies; a kernel's vector width):
+    # positions are matched on the kernel without its template arguments,
+    # copies and fills as one kind
+    coarse = lambda x: "copy or fill" if x.startswith(("Memset", "Memcpy")) else x.split("<")[0]
+    n_all = rec[prefixes[-1]]["kernels"]
+    replays = [rec[prefixes[-1]]["seq"][r * n_all:(r + 1) * n_all]
+               for r in range(STAGE_PROFILED)]
+    within = {}
+    for k in prefixes:
+        n = rec[k]["kernels"]
+        names = [coarse(x) for x, _ in rec[k]["seq"][:n]]
+        for rp in replays:
+            got = [coarse(x) for x, _ in rp[:n]]
+            if got != names:
+                i = next(j for j, (x, y) in enumerate(zip(got, names)) if x != y)
+                raise AssertionError(
+                    f"{tag}: piece {k}'s {n} kernels are not the first of {prefixes[-1]}'s, "
+                    f"in order: at {i} {[x[:80] for x in names[max(i - 2, 0):i + 3]]} against "
+                    f"{[x[:80] for x in got[max(i - 2, 0):i + 3]]}")
+        within[k] = sum(ms for rp in replays for _, ms in rp[:n]) / STAGE_PROFILED
+    stages, prev = {}, None
+    for k in prefixes:
+        base = (0, 0.0, 0.0) if prev is None else (rec[prev]["kernels"], within[prev],
+                                                     rec[prev]["ms"])
+        stages[k if prev is None else f"{prev}->{k}"] = (
+            rec[k]["kernels"] - base[0], within[k] - base[1], rec[k]["ms"] - base[2])
+        prev = k
+    return stages
+
+
+def _phase_4k_track(SP, cfg, cam, state_seq, ba_kernels):
+    """Phase 4k (a): the tracking frame split by stage and BA's floor on
+    ``profile_ba_floor.py``'s state (16 frames of ``state_seq``) and its next
+    frame, beside one replay of the tracking program on the same state and
+    frame; the gates of the module docstring. Returns the record."""
+    from monocular_visual_odometry_tpu_torch.models import state as S
+    from monocular_visual_odometry_tpu_torch.models import vo as V
+
+    t0 = time.perf_counter()
+    frames = state_seq[0].astype(np.float32)
+    st, _ = V.run_sequence(cfg, cam, S.init_state(cfg, 0, "cuda"), frames[:SP.STATE_FRAMES],
+                           height=H, width=W)
+    if int(st.stage) != S.STAGE_TRACKING:
+        raise AssertionError(f"4k: not tracking after {SP.STATE_FRAMES} frames")
+    img = torch.from_numpy(frames[SP.STATE_FRAMES]).cuda()
+    ch = SP.tracking_chain(cfg, cam, st, img, height=H, width=W)
+    fns = SP.track_pieces(cfg, cam, ch, height=H, width=W)
+    fns.update(SP.ba_pieces(cfg, cam, ch.new))
+    progs = {k: SP.capture(fn, "cuda") for k, fn in fns.items()}
+    programs = V.StagePrograms(cfg, cam, H, W, "cuda")
+    programs(st, img, S.STAGE_TRACKING, int(st.rng))
+    prog = progs["program"] = programs.programs[S.STAGE_TRACKING]
+    print(f"4k (a): state after {SP.STATE_FRAMES} frames of make_trajectory"
+          f"({SP.STATE_FRAMES + 1}, 0, {SP.STATE_STEP}) (map points {int(st.map.n_valid)}), frame "
+          f"{SP.STATE_FRAMES}: tracking_ok {bool(ch.out.tracking_ok)}, keyframe "
+          f"{bool(ch.out.is_keyframe)}, {int(ch.out.n_candidates)} candidates, "
+          f"{int(ch.out.n_matches)} matches, {int(ch.out.n_inliers)} inliers; {len(progs)} "
+          f"pieces captured in {time.perf_counter() - t0:.1f} s", flush=True)
+    # the program's replay writes its new state into its buffers: reload them
+    reload = lambda: prog.load(ch.st, img, ch.draws)
+    rec = _measure_pieces("4k (a)", progs, reset={"program": reload})
+    for k in SP.TRACK_ORDER:
+        _print_piece("4k (a)", k, rec[k])
+    _print_piece("4k (a)", "the tracking program (StagePrograms, one replay)", rec["program"])
+
+    # the split closes: e + ba + keyframe + glue is the tracking program
+    parts = [k for k in ("e", "ba", "keyframe", "glue") if k in rec]
+    k_sum = sum(rec[k]["kernels"] for k in parts)
+    b_sum = sum(rec[k]["busy_ms"] for k in parts)
+    k_prog, b_prog = rec["program"]["kernels"], rec["program"]["busy_ms"]
+    stages = _stage_shares("4k (a)", rec, SP.PREFIXES)
+    stages.update({k: (rec[k]["kernels"], rec[k]["busy_ms"], rec[k]["ms"]) for k in parts[1:]})
+    print(f"4k (a) split: {' + '.join(parts)} = {k_sum:.0f} kernels, {b_sum:.3f} ms busy; the "
+          f"tracking program {k_prog:.0f} kernels, {b_prog:.3f} ms busy ({k_sum / k_prog - 1:+.2%} "
+          f"kernels, limit {SPLIT_KERNEL_TOL:.0%}; {b_sum / b_prog - 1:+.2%} busy, limit "
+          f"{SPLIT_BUSY_TOL:.0%}); each stage's own kernels, ms busy (the prefixes' inside e's "
+          f"profile) and ms a call (the difference of the prefixes' CUDA-event times): "
+          + ", ".join(f"{k} ({v[0]:.0f}, {v[1]:.3f}, {v[2]:+.3f})" for k, v in stages.items()),
+          flush=True)
+    if not abs(k_sum - k_prog) <= SPLIT_KERNEL_TOL * k_prog:
+        raise AssertionError(f"4k: the pieces' kernels ({k_sum}) do not add up to the tracking "
+                             f"program's ({k_prog})")
+    if not abs(b_sum - b_prog) <= SPLIT_BUSY_TOL * b_prog:
+        raise AssertionError(f"4k: the pieces' busy ms ({b_sum:.3f}) do not add up to the "
+                             f"tracking program's ({b_prog:.3f})")
+    negative = {k: v for k, v in stages.items() if v[0] < 0 or v[1] < 0}
+    if negative:
+        raise AssertionError(f"4k: stages read negative: {negative}")
+
+    # the matcher ran where the path runs it: one launch in c, d, e and the
+    # keyframe update, two in the tracking program (PERF.md section 2)
+    _check_matcher("4k (a)", rec)
+
+    # BA: the 12-iteration piece is phase 4c's call, and its parts add up
+    n_it = cfg.ba.iterations
+    fit = {q: SP.linear_fit(SP.BA_ITERS, [rec[f"ba@{n}"][q] for n in SP.BA_ITERS])
+           for q in ("ms", "kernels", "busy_ms")}
+    parts_busy = sum(rec[k]["busy_ms"] for k in ("gather_window", "ba_solve", "write_back"))
+    print(f"4k (a) BA floor (profile_ba_floor.py): ba_update_state at {list(SP.BA_ITERS)} LM "
+          f"iterations: ms {[round(rec[f'ba@{n}']['ms'], 3) for n in SP.BA_ITERS]}, kernels "
+          f"{[round(rec[f'ba@{n}']['kernels']) for n in SP.BA_ITERS]}, busy ms "
+          f"{[round(rec[f'ba@{n}']['busy_ms'], 3) for n in SP.BA_ITERS]}; per iteration / fixed: "
+          + ", ".join(f"{q} {a:.4g} / {b:.4g}" for q, (a, b) in fit.items())
+          + f"; gather_window + ba_solve + write_back {parts_busy:.3f} ms busy against "
+          f"ba_update_state's {rec['ba']['busy_ms']:.3f} (limit {BA_PARTS_TOL:.0%}); "
+          f"{n_it} iterations: {rec[f'ba@{n_it}']['kernels']:.0f} kernels, phase 4c "
+          f"{ba_kernels}", flush=True)
+    for k in ("gather_window", "ba_solve", "write_back"):
+        _print_piece("4k (a)", k, rec[k])
+    if rec[f"ba@{n_it}"]["kernels"] != ba_kernels or rec["ba"]["kernels"] != ba_kernels:
+        raise AssertionError(f"4k: ba_update_state at {n_it} iterations is "
+                             f"{rec[f'ba@{n_it}']['kernels']} kernels, phase 4c's call "
+                             f"{ba_kernels}")
+    if not abs(parts_busy - rec["ba"]["busy_ms"]) <= BA_PARTS_TOL * rec["ba"]["busy_ms"]:
+        raise AssertionError(f"4k: BA's parts take {parts_busy:.3f} ms busy, the whole "
+                             f"{rec['ba']['busy_ms']:.3f}")
+    del progs, programs, prog, ch
+    return dict(pieces={k: {q: r[q] for q in ("ms", "kernels", "busy_ms", "matcher")}
+                        for k, r in rec.items()},
+                split=dict(kernels=k_sum, busy_ms=b_sum, program_kernels=k_prog,
+                           program_busy_ms=b_prog),
+                stages={k: dict(kernels=v[0], busy_ms=v[1], ms=v[2]) for k, v in stages.items()},
+                ba_fit={q: dict(per_iteration=a, fixed=b) for q, (a, b) in fit.items()})
+
+
+def _phase_4k_init(SP, cfg, cam, frames):
+    """Phase 4k (b): ``profile_init.py``'s pieces of ``bench.py`` cfg1's
+    ``init_pair`` (frames 0 and 3 of phase 4's sequence, written as PNGs and
+    read back through the port's loader) under the 8-point and five-point
+    solvers; piece C must be the init stage program's R, t and inliers.
+    Returns the record."""
+    from monocular_visual_odometry_tpu_torch.runtime import FrameLoader, write_png
+
+    out_dir = Path(ROOT) / "build" / "4k"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = [str(out_dir / f"rgb_{i:05d}.png") for i in SP.INIT_PAIR]
+    for path, i in zip(paths, SP.INIT_PAIR):
+        write_png(path, frames[i])
+    with FrameLoader(paths, H, W) as loader:
+        pair = [torch.from_numpy(f.astype(np.float32)).cuda() for f in loader]
+    out = {}
+    for minimal in ("8pt", "5pt"):
+        c = cfg.replace(ransac=dataclasses.replace(cfg.ransac, essential_minimal=minimal))
+        R, t, inliers, key, programs = SP.init_program_pose(c, cam, *pair, height=H, width=W)
+        R, t, inliers = R.clone(), t.clone(), inliers.clone()
+        progs = {k: SP.capture(fn, "cuda") for k, fn in SP.init_pieces(c, cam, *pair, key).items()}
+        _, (Rc, tc, ic) = progs["C"].replay()
+        same = torch.equal(Rc, R) and torch.equal(tc, t) and torch.equal(ic, inliers)
+        rec = _measure_pieces(f"4k (b) {minimal}", progs)
+        for k in ("A", "B", "C", "D"):
+            _print_piece(f"4k (b) init_pair {minimal}", k, rec[k])
+        shares = _stage_shares(f"4k (b) {minimal}", rec, ("A", "B", "C"))
+        print(f"4k (b) init_pair {minimal}: each stage's own kernels, ms busy (inside C's "
+              f"profile) and ms a call: " + ", ".join(
+                  f"{k} ({v[0]:.0f}, {v[1]:.3f}, {v[2]:+.3f})" for k, v in shares.items()),
+              flush=True)
+        print(f"4k (b) init_pair {minimal}: piece C against the init stage program on the same "
+              f"pair and draws: R, t and inliers equal {same} ({int(inliers.sum())} inliers); "
+              f"cfg1's init_pair {rec['C']['ms']:.3f} ms per call on the card", flush=True)
+        if not same:
+            raise AssertionError(f"4k: init piece C parts from the init program ({minimal})")
+        _check_matcher(f"4k (b) {minimal}", rec)
+        out[minimal] = {k: {q: r[q] for q in ("ms", "kernels", "busy_ms")}
+                        for k, r in rec.items()}
+        del progs, programs
+    return out
+
+
+def _phase_4k_protocols(cfg, cam, drift_seq, planar_seq):
+    """Phase 4k (c): ``profile_drift_ab.py``'s three BA window rows over
+    ``make_trajectory(150, 0, 0.05)`` and ``profile_adversarial.py``'s family
+    C (``planar_scene()`` x ``make_planar_trajectory(90)``) under both
+    selection rules, each configuration's stream through one captured
+    general batched step (released after its row). Returns (rows, the
+    gates missed)."""
+    from monocular_visual_odometry_tpu_torch.models import vo as V
+
+    seqs = {"drift": drift_seq, "planar": planar_seq}
+    rows, misses = {}, []
+    for kfw, win in DRIFT_ROWS:
+        c = cfg.replace(ba=dataclasses.replace(cfg.ba, keyframe_window=kfw, window=win))
+        name = f"drift A/B keyframe_window={kfw} window={win}"
+        (r,), _ = _eval_program(name, c, cam, [("drift", 0)], seqs, tag="4k (c)")
+        V.release_batched()
+        rows[name] = r
+        jax_ate, jax_drift = DRIFT_JAX.get((kfw, win), (None, None))
+        fmt = lambda v: "n/a" if v is None else f"{v:.2f}%"
+        print(f"4k (c) {name}: ATE {fmt(r['ate'])}, final drift {fmt(r['drift'])}, p95 drift "
+              f"{fmt(r['drift_p95'])} of the path; init frame {r['init']}, tracking failures "
+              f"{r['n_fail']}; JAX (docs/PARITY.md, CPU): ATE {fmt(jax_ate)}, final drift "
+              f"{fmt(jax_drift)}", flush=True)
+        if r["failed"] or r["n_fail"] > 5 or not r["ate"] < 3.0:
+            misses.append(f"{name}: failed {r['failed']}, {r['n_fail']} tracking failures, "
+                          f"ATE {r['ate']} (budget 3%)")
+        elif jax_ate is not None and not r["ate"] <= jax_ate + EVAL_BAND_PP:
+            misses.append(f"{name}: ATE {r['ate']:.2f}% above JAX's {jax_ate}% + {EVAL_BAND_PP} pp")
+    a, b = (rows[f"drift A/B keyframe_window={k} window=5"]["ate"] for k in (False, True))
+    if a is not None and b is not None:
+        print(f"4k (c) drift A/B direction: last W frames {a:.2f}% -> keyframe window "
+              f"{b:.2f}% ({'better' if b < a else 'not better'}); JAX "
+              f"{DRIFT_JAX[(False, 5)][0]}% -> {DRIFT_JAX[(True, 5)][0]}% (better)", flush=True)
+    for rule, ref in (("tournament_rule", False), ("reference_rule", True)):
+        c = cfg.replace(init=dataclasses.replace(cfg.init, use_reference_selection=ref))
+        name = f"family C planar {rule}"
+        (r,), _ = _eval_program(name, c, cam, [("planar", 0)], seqs, tag="4k (c)",
+                                n=PLANAR_C_FRAMES)
+        V.release_batched()
+        rows[name] = r
+        tracked = None if r["init"] is None else PLANAR_C_FRAMES - r["init"] - r["n_fail"]
+        n_track = None if r["init"] is None else PLANAR_C_FRAMES - r["init"]
+        print(f"4k (c) {name}: ATE {r['ate'] if r['ate'] is None else round(r['ate'], 2)}% of "
+              f"the path, final drift {r['drift'] if r['drift'] is None else round(r['drift'], 2)}"
+              f"%, init frame {r['init']} (H at init: {r['used_h']}), tracking_ok on {tracked}/"
+              f"{n_track}; JAX (ROBUSTNESS_r04.json C_planar): ATE {PLANAR_C_JAX['ate']}%, init "
+              f"frame {PLANAR_C_JAX['init']}, 82/82", flush=True)
+        if (r["failed"] or r["init"] is None
+                or abs(r["init"] - PLANAR_C_JAX["init"]) > PLANAR_C_INIT_TOL
+                or not r["ate"] <= PLANAR_C_JAX["ate"] + EVAL_BAND_PP):
+            misses.append(f"{name}: failed {r['failed']}, init frame {r['init']} (JAX "
+                          f"{PLANAR_C_JAX['init']} +/- {PLANAR_C_INIT_TOL}), ATE {r['ate']} "
+                          f"(limit {PLANAR_C_JAX['ate']} + {EVAL_BAND_PP})")
+    return rows, misses
+
+
+def _phase_4k(cfg, frames, state_seq, drift_seq, planar_seq, ba_kernels):
+    """Phase 4k (see the module docstring). Returns the record."""
+    from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
+
+    t_phase = time.perf_counter()
+    SP = _stage_protocol()
+    cam = VOEngine(cfg, H, W, device="cuda").cam
+    track = _phase_4k_track(SP, cfg, cam, state_seq, ba_kernels)
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t_phase
+    init = _phase_4k_init(SP, cfg, cam, frames)
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter() - t_phase
+    rows, misses = _phase_4k_protocols(cfg, cam, drift_seq, planar_seq)
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    print(f"4k: phase 4k took {took:.1f} s ((a) {t_a:.1f}, (b) {t_b - t_a:.1f}, (c) "
+          f"{took - t_b:.1f}); rows missing their gate: {misses or 'none'}", flush=True)
+    if misses:
+        raise AssertionError(f"4k: {len(misses)} row gate(s) missed: {misses}")
+    return dict(track=track, init=init, rows=rows, seconds=took)
 
 
 def main() -> int:
@@ -2682,21 +3126,25 @@ def main() -> int:
     elapsed("phase 4")
     # ---- 4. main path: the default config (BA on), then BA off, then 5pt ---
     t0 = time.perf_counter()
+    SP = _stage_protocol()
     rendered = _render_all(
         [("bench", 0, N_FRAMES, 0.04)]
         + [("bench", seed, BATCH_FRAMES, 0.05) for seed in range(BATCH_SEQS)]
         + [("bench", 0, ROBUST_FRAMES, 0.05), ("bench", 0, CHAIN_FRAMES, 0.05),
            ("planar", 0, PLANAR_FRAMES, 0.0), ("bench", 0, DIST_FRAMES, 0.05)]
-        + [(kind, seed, EVAL_FRAMES, step) for kind, seed, step in EVAL_RENDER.values()])
+        + [(kind, seed, EVAL_FRAMES, step) for kind, seed, step in EVAL_RENDER.values()]
+        # phase 4k: profile_ba_floor.py's 16 frames and the next; family C
+        + [("bench", 0, SP.STATE_FRAMES + 1, SP.STATE_STEP), ("planar", 0, PLANAR_C_FRAMES, 0.0)])
     (frames, gt), batch_seqs = rendered[0], rendered[1:1 + BATCH_SEQS]
     robust_seq, chain_seq, planar_seq, seq18 = rendered[1 + BATCH_SEQS:5 + BATCH_SEQS]
     # phase 4j's scene families; its clean family A is 4g's robustness sequence
-    eval_rendered = dict(zip(EVAL_RENDER, rendered[5 + BATCH_SEQS:]))
+    eval_rendered = dict(zip(EVAL_RENDER, rendered[5 + BATCH_SEQS:-2]))
+    state_seq, planar_c_seq = rendered[-2:]
     assert ROBUST_FRAMES == EVAL_FRAMES
     print(f"rendered {N_FRAMES} + {BATCH_SEQS} x {BATCH_FRAMES} + {ROBUST_FRAMES} + "
           f"{CHAIN_FRAMES} + {PLANAR_FRAMES} (planar) + {DIST_FRAMES} + {len(EVAL_RENDER)} x "
-          f"{EVAL_FRAMES} (4j's scene families) frames in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          f"{EVAL_FRAMES} (4j's scene families) + {SP.STATE_FRAMES + 1} + {PLANAR_C_FRAMES} "
+          f"(4k) frames in {time.perf_counter() - t0:.1f} s", flush=True)
     cfg = VOConfig()
     cfg_no_ba = cfg.replace(ba=dataclasses.replace(cfg.ba, enabled=False))
     cfg_5pt = cfg.replace(ransac=dataclasses.replace(cfg.ransac, essential_minimal="5pt"))
@@ -2826,9 +3274,11 @@ def main() -> int:
     torch.cuda.synchronize()
     ba_wall_ms = (time.perf_counter() - t0) * 1e3 / 20
     with torch.profiler.profile(activities=acts) as prof:
+        _markers()
         BA.ba_update_state(cfg, prof_eng.cam, st)
+        _markers()
         torch.cuda.synchronize()
-    ba_kernels = device_kernels(prof)
+    ba_kernels, _ = _without_markers(device_kernels(prof))
     with _OpCount() as ops:  # the host's side: aten ops dispatched, views included
         BA.ba_update_state(cfg, prof_eng.cam, st)
     ba_busy = sum(ms for _, ms, _ in ba_kernels)
@@ -3101,6 +3551,10 @@ def main() -> int:
     elapsed("phase 4j")
     evaluation = _phase_4j(cfg, robust_seq, eval_rendered)
 
+    elapsed("phase 4k")
+    # profile_drift_ab.py's sequence is 4g's robustness sequence, make_trajectory(150, 0, 0.05)
+    stage_profile = _phase_4k(cfg, frames, state_seq, robust_seq, planar_c_seq, ba_n)
+
     elapsed("phase 5")
     # ---- 5. kernels line and device line ---------------------------------
     track = shape_rows[1]
@@ -3142,6 +3596,11 @@ def main() -> int:
                                                     "capture_s", "capture_gib")}
                           for name, p in evaluation["programs"].items()},
         "eval_e_at_init": evaluation["e_at_init"],
+        "stage_profile": {"matcher_per_call": {k: r["matcher"] for k, r in
+                                               stage_profile["track"]["pieces"].items()},
+                          "split": stage_profile["track"]["split"],
+                          "init_pair_ms": {m: r["C"]["ms"] for m, r in stage_profile["init"].items()},
+                          "seconds": stage_profile["seconds"]},
         "single_stream_fps_sum": single_fps_sum,
         "graph_route": dict(
             routes, waits_per_frame=graph_waits, five_point=dict(routes_5pt, **init_5pt),

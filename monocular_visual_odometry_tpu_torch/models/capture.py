@@ -75,6 +75,29 @@ def _add_counts(delta: dict) -> None:
         setattr(f, a, getattr(f, a) + delta[k])
 
 
+def finish(state_bufs: list, new, outs, inputs: list, into: list | None = None):
+    """A program's tail after its function: every output that shares memory
+    with a tensor of ``inputs`` cloned, and every leaf of ``new`` that is not
+    its state buffer (``state_bufs``, flat) copied into ``into`` (default: the
+    state buffers themselves) last, cloned first where it shares memory with
+    an input. ``into`` lets a profile run the same copies without changing
+    the state it reads. Returns the outputs."""
+    taken = {t.untyped_storage().data_ptr() for t in inputs if t is not None}
+    shares = lambda t: t is not None and t.untyped_storage().data_ptr() in taken
+    copies = []
+    for i, (buf, t) in enumerate(zip(state_bufs, tree_flatten(new)[0])):
+        if t is buf:
+            continue
+        if (t is None) != (buf is None) or t.shape != buf.shape or t.dtype != buf.dtype:
+            raise ValueError("CapturedStep: fn's new state changes a field's shape or dtype")
+        copies.append((i, t.clone() if shares(t) else t))
+    outs = tree_map(lambda t: t.clone() if shares(t) else t, outs)
+    dest = state_bufs if into is None else into
+    for i, t in copies:
+        dest[i].copy_(t)
+    return outs
+
+
 class CapturedStep:
     """``fn`` as a captured program with static input buffers (see the module
     docstring). ``graph``: capture on a CUDA device (False runs ``fn``
@@ -82,7 +105,9 @@ class CapturedStep:
     ``fn`` appends to, if any. Attributes: ``calls``, ``replays``,
     ``per_call`` (what one call adds to each counter), ``per_call_record``
     (what one call appends to the mesh's record), ``warmup_s`` and
-    ``capture_s`` (seconds of the first call's warm-up and capture)."""
+    ``capture_s`` (seconds of the first call's warm-up and capture). A call
+    is :meth:`load` then :meth:`replay` (capturing first on a card); a
+    profile replays a loaded program on its own."""
 
     def __init__(self, fn: Callable, *, graph: bool = True, mesh=None):
         self.fn = fn
@@ -103,11 +128,13 @@ class CapturedStep:
 
     # -- buffers ------------------------------------------------------------
 
-    def _load(self, inputs) -> None:
-        leaves, spec = tree_flatten(inputs)
+    def load(self, state, *args) -> None:
+        """Copy the inputs into the buffers without running (a buffer handed
+        back as its own input is not copied); the first load makes them."""
+        leaves, spec = tree_flatten((state, *args))
         if self._bufs is None:
             self._spec = spec
-            self._n_state = len(tree_flatten(inputs[0])[0])
+            self._n_state = len(tree_flatten(state)[0])
             self._bufs = [None if t is None else t.clone() for t in leaves]
             return
         if spec != self._spec:
@@ -130,29 +157,14 @@ class CapturedStep:
     # -- the program ----------------------------------------------------------
 
     def _body(self):
-        """``fn`` on the buffers; outputs that share memory with an input
-        buffer cloned; the new state copied into the state buffers last.
-        Returns the outputs (``fn``'s results after the state)."""
+        """``fn`` on the buffers, then :func:`finish`. Returns the outputs
+        (``fn``'s results after the state)."""
         st, *args = self._inputs()
         new, *outs = self.fn(st, *args)
-        taken = {t.untyped_storage().data_ptr() for t in self._bufs if t is not None}
-        shares = lambda t: t is not None and t.untyped_storage().data_ptr() in taken
-        state_bufs = self._bufs[:self._n_state]
-        new_leaves, new_spec = tree_flatten(new)
-        if new_spec != tree_flatten(st)[1]:
+        if tree_flatten(new)[1] != tree_flatten(st)[1]:
             raise ValueError("CapturedStep: fn's new state has another structure than its "
                              "input state")
-        copies = []
-        for buf, t in zip(state_bufs, new_leaves):
-            if t is buf:
-                continue
-            if (t is None) != (buf is None) or t.shape != buf.shape or t.dtype != buf.dtype:
-                raise ValueError("CapturedStep: fn's new state changes a field's shape or dtype")
-            copies.append((buf, t.clone() if shares(t) else t))
-        outs = tree_map(lambda t: t.clone() if shares(t) else t, outs)
-        for buf, t in copies:
-            buf.copy_(t)
-        return outs
+        return finish(self._bufs[:self._n_state], new, outs, self._bufs)
 
     def _capture(self) -> None:
         before, n_before = _counts(), self._n_record()
@@ -195,14 +207,19 @@ class CapturedStep:
         self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
         self._cuda_graph, self._outs = graph, outs
 
-    def __call__(self, state, *args):
-        """One step: returns ``(new_state, *outputs)``, both valid until the
-        next call of this object."""
-        self._load((state, *args))
-        self.calls += 1
-        if self.graph and self._bufs[0].device.type == "cuda":
+    def _graphed(self) -> bool:
+        return self.graph and self._bufs[0].device.type == "cuda"
+
+    def replay(self):
+        """The program once on the buffers as they stand: on a CUDA device a
+        replay of the graph a first call captured, elsewhere ``fn`` eagerly.
+        Returns ``(new_state, *outputs)`` and moves the counters as a call
+        does."""
+        if self._bufs is None:
+            raise RuntimeError("CapturedStep.replay: no inputs loaded yet")
+        if self._graphed():
             if self._cuda_graph is None:
-                self._capture()
+                raise RuntimeError("CapturedStep.replay: nothing captured yet")
             self._cuda_graph.replay()
             self.replays += 1
             _add_counts(self.per_call)
@@ -217,3 +234,12 @@ class CapturedStep:
             if self.mesh is not None:
                 self.per_call_record = self.mesh.record[n_before:]
         return (self._inputs()[0], *outs)
+
+    def __call__(self, state, *args):
+        """One step: returns ``(new_state, *outputs)``, both valid until the
+        next call of this object."""
+        self.load(state, *args)
+        self.calls += 1
+        if self._graphed() and self._cuda_graph is None:
+            self._capture()
+        return self.replay()

@@ -287,21 +287,30 @@ def step_init(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
-def step_track(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
-               *, height: int, width: int, u: Optional[torch.Tensor] = None,
-               feats: Optional[FrameFeatures] = None):
-    """Tracking: frustum scan, 3D-2D matching, RANSAC-PnP, pose-jump
-    rejection and the keyframe-need flag. ``u`` are the PnP draw's uniforms
-    when the caller made them (the batched steps), ``feats`` the frame's
-    features. Returns (new state, StepOutput, features, keypoint links)."""
-    dev = img.device
-    feats = features_from_config(img, cfg.orb) if feats is None else feats
-    rng, k_pnp = _next_key(st)
+class TrackCandidates(NamedTuple):
+    """The tracking frame's candidate pool: the map slots in the frustum,
+    compacted (``cfg.map.track_candidates``) into the matcher's queries."""
 
-    # frustum scan with the constant-velocity prediction; with the union
-    # gate also the stale pose. Asymmetric on purpose (as in the JAX
-    # package): the stale projection is pushed to 1e9 when it is out of
-    # frame, the predicted one only when it is behind the camera.
+    candidates: torch.Tensor          # [M] bool: in the frustum (either projection)
+    visible: torch.Tensor             # [M] int32: the map's visible counts, updated
+    comp_idx: torch.Tensor            # [C] map slot per pool entry, -1 padded
+    comp_ok: torch.Tensor             # [C] bool: the entry holds a candidate
+    comp_safe: torch.Tensor           # [C] comp_idx clamped to a valid slot
+    desc: torch.Tensor                # [C,32] descriptors
+    proj: torch.Tensor                # [C,2] predicted projections (1e9: behind)
+    pts: torch.Tensor                 # [C,3] map points
+    proj_alt: Optional[torch.Tensor]  # [C,2] stale-pose projections (the union gate)
+
+
+def track_candidates(cfg: VOConfig, cam: Camera, st: S.VOState, *, height: int,
+                     width: int) -> TrackCandidates:
+    """The frustum scan of :func:`step_track`, with the constant-velocity
+    prediction and (union gate) the stale pose, and the candidate
+    compaction."""
+    dev = st.T_w_c.device
+    # Asymmetric on purpose (as in the JAX package): the stale projection is
+    # pushed to 1e9 when it is out of frame, the predicted one only when it
+    # is behind the camera.
     use_union = cfg.tracking.use_motion_model and cfg.tracking.motion_gate_union
     T_proj = st.T_w_c @ st.last_rel if cfg.tracking.use_motion_model else st.T_w_c
     p_cam = lie.transform_points(lie.inv_T(T_proj), st.map.pts)
@@ -324,22 +333,40 @@ def step_track(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
         comp_idx = compact_mask(candidates, C)
         comp_ok = comp_idx >= 0
         comp_safe = torch.clamp(comp_idx, min=0)
-        cand_desc = st.map.desc[comp_safe]
-        cand_proj = proj[comp_safe]
-        cand_pts = st.map.pts[comp_safe]
-        cand_proj_alt = proj_s[comp_safe] if use_union else None
-    else:
-        comp_idx = comp_safe = torch.arange(M, device=dev)
-        comp_ok = candidates
-        cand_desc, cand_proj, cand_pts = st.map.desc, proj, st.map.pts
-        cand_proj_alt = proj_s if use_union else None
+        return TrackCandidates(candidates, visible, comp_idx, comp_ok, comp_safe,
+                               st.map.desc[comp_safe], proj[comp_safe], st.map.pts[comp_safe],
+                               proj_s[comp_safe] if use_union else None)
+    comp_idx = torch.arange(M, device=dev)
+    return TrackCandidates(candidates, visible, comp_idx, candidates, comp_idx, st.map.desc,
+                           proj, st.map.pts, proj_s)
 
-    m = _match(cfg, cand_desc, feats.desc, comp_ok, feats.valid, cand_proj,
-               feats.kpts, cfg.match.max_pixel_dist_pnp, kpts1_alt=cand_proj_alt)
+
+def match_candidates(cfg: VOConfig, c: TrackCandidates,
+                     feats: FrameFeatures) -> matching.Matches:
+    """The tracking frame's 3D-2D match: the candidate pool against the
+    frame's keypoints, radius-gated around the projections."""
+    return _match(cfg, c.desc, feats.desc, c.comp_ok, feats.valid, c.proj, feats.kpts,
+                  cfg.match.max_pixel_dist_pnp, kpts1_alt=c.proj_alt)
+
+
+def step_track(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
+               *, height: int, width: int, u: Optional[torch.Tensor] = None,
+               feats: Optional[FrameFeatures] = None):
+    """Tracking: frustum scan and candidate compaction
+    (:func:`track_candidates`), 3D-2D matching (:func:`match_candidates`),
+    RANSAC-PnP, pose-jump rejection and the keyframe-need flag. ``u`` are
+    the PnP draw's uniforms when the caller made them (the batched steps),
+    ``feats`` the frame's features. Returns (new state, StepOutput,
+    features, keypoint links)."""
+    dev = img.device
+    feats = features_from_config(img, cfg.orb) if feats is None else feats
+    rng, k_pnp = _next_key(st)
+    c = track_candidates(cfg, cam, st, height=height, width=width)
+    m = match_candidates(cfg, c, feats)
     uv = feats.kpts[m.train_idx]
 
     res = pnp.solve_pnp_ransac(
-        cand_pts, uv, m.valid, cam, k_pnp,
+        c.pts, uv, m.valid, cam, k_pnp,
         threshold_px=cfg.ransac.pnp_reproj_threshold_px,
         n_hypotheses=cfg.ransac.pnp_n_hypotheses,
         min_inliers=cfg.ransac.pnp_min_inliers, u=u,
@@ -352,11 +379,11 @@ def step_track(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
     pose = torch.where(ok, T_w_c_new, st.T_w_c)
 
     inl_ok = res.inliers & ok
-    matched_add = torch.zeros(M, dtype=torch.int32, device=dev).index_add(
-        0, comp_safe, (inl_ok & comp_ok).to(torch.int32))
-    new_map = st.map._replace(visible=visible, matched=st.map.matched + matched_add)
+    matched_add = torch.zeros(st.map.pts.shape[0], dtype=torch.int32, device=dev).index_add(
+        0, c.comp_safe, (inl_ok & c.comp_ok).to(torch.int32))
+    new_map = st.map._replace(visible=c.visible, matched=st.map.matched + matched_add)
     k = cfg.orb.max_keypoints
-    map_slot = comp_idx[m.query_idx].to(torch.int32)
+    map_slot = c.comp_idx[m.query_idx].to(torch.int32)
     curr_mp = scatter_links(torch.full((k,), -1, dtype=torch.int32, device=dev),
                             m.train_idx, torch.where(inl_ok, map_slot,
                                                      torch.full_like(map_slot, -1)))
@@ -378,7 +405,7 @@ def step_track(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
         n_map_points=new_map.n_valid,
         kpts=feats.kpts, kpt_valid=feats.valid, kpt_inlier=kpt_inlier,
         ba_rejected_total=st.ba_rejected,
-        n_candidates=torch.sum(candidates, dtype=torch.int32),
+        n_candidates=torch.sum(c.candidates, dtype=torch.int32),
     )
     return new, out, feats, curr_mp
 

@@ -59,6 +59,16 @@ def _port_cfg(ba=False):
     return convert.config_to_torch(dataclasses.asdict(_small_cfg(ba)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    # beside the other xdist workers a thread pool per process oversubscribes
+    # the cores: the file's longest fixture took 2.5x its time alone
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def sequence():
     frames, gt = tsyn.render_sequence_arrays(N_FRAMES, seed=0, translation_step=0.05)
@@ -261,14 +271,15 @@ def test_add_frame_returns_the_step_output_on_the_host(sequence):
 
 def _port_files():
     return sorted((ROOT / "monocular_visual_odometry_tpu_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py", ROOT / "tests" / "eval_protocol.py"]
+        [ROOT / "chip_smoke.py", ROOT / "tests" / "eval_protocol.py",
+         ROOT / "tests" / "stage_protocol.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
 def test_port_imports_no_jax(path):
     """No import of jax or of the JAX package anywhere in the port, in
-    chip_smoke.py or in the protocol it shares with the tests
-    (tests/eval_protocol.py), none of yaml or PIL either (the port depends on neither),
+    chip_smoke.py or in the protocols it shares with the tests
+    (tests/eval_protocol.py, tests/stage_protocol.py), none of yaml or PIL either (the port depends on neither),
     no scipy (the port has its own rotations, blur and LM), and matplotlib
     only inside functions. Imports by name (``importlib.import_module``,
     ``__import__``) count too."""
