@@ -62,7 +62,8 @@ def main(argv=None) -> int:
                     help="save VO state every N frames (0 = off)")
     ap.add_argument("--resume", help="resume from a state checkpoint (.npz)")
     ap.add_argument("--profile-dir", default=None,
-                    help="write a torch.profiler trace here")
+                    help="write a torch.profiler trace here, with spans on (the vo.* "
+                         "ranges and the programs' marker kernels in it)")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     args = ap.parse_args(argv)
 
@@ -73,8 +74,7 @@ def main(argv=None) -> int:
     from monocular_visual_odometry_tpu_torch.utils import metrics
     from monocular_visual_odometry_tpu_torch.utils.checkpoint import load_state, save_state
     from monocular_visual_odometry_tpu_torch.utils.config import VOConfig, load_config
-    from monocular_visual_odometry_tpu_torch.utils.logging import (StageTimer, format_step,
-                                                                   torch_trace)
+    from monocular_visual_odometry_tpu_torch.utils import logging as lg
     from monocular_visual_odometry_tpu_torch.viz import draw, trajectory
 
     os.makedirs(args.output, exist_ok=True)
@@ -100,67 +100,70 @@ def main(argv=None) -> int:
 
     H, W = png_size(paths[0])
 
-    try:
-        engine = VOEngine(cfg, H, W, seed=args.seed, device="cpu" if args.cpu else "cuda")
-    except RuntimeError as e:
-        print(f"[cli] {e}", file=sys.stderr)
-        return 1
-    if args.resume:
-        engine.state = load_state(args.resume, engine.state)
-        print(f"[cli] resumed from {args.resume} at frame {int(engine.state.frame_idx)}")
+    # --profile-dir turns spans on for the run, so the trace it writes has them
+    with lg.spans(bool(args.profile_dir)):
+        lg.reset()
+        try:
+            engine = VOEngine(cfg, H, W, seed=args.seed, device="cpu" if args.cpu else "cuda")
+        except RuntimeError as e:
+            print(f"[cli] {e}", file=sys.stderr)
+            return 1
+        if args.resume:
+            engine.state = load_state(args.resume, engine.state)
+            print(f"[cli] resumed from {args.resume} at frame {int(engine.state.frame_idx)}")
 
-    # prefetching loader: zlib inflate + the C++ row unfilter, on worker threads
-    print("[cli] frame loader: native C++")
-    timer = StageTimer()
-    est = []
-    kf_frames = []
-    # resume carries the historical rejection count — warn only on NEW ones
-    ba_rejected_seen = int(engine.state.ba_rejected)
-    t_start = time.perf_counter()
-    with torch_trace(args.profile_dir), FrameLoader(paths, H, W) as loader:
-        it = enumerate(loader)
-        while True:
-            try:  # stop on an unreadable frame, keeping the results so far
-                i, img = next(it)
-            except StopIteration:
-                break
-            except IOError as e:
-                print(f"[cli] frame read failed: {e}; stopping")
-                break
-            with timer.time("vo_step"):
-                out = engine.add_frame(img)
-            est.append(out.T_w_c.numpy())
-            if bool(out.is_keyframe):
-                kf_frames.append(i)
-            # tracking candidate-pool pressure must be visible, not silent
-            n_cand = int(out.n_candidates)
-            if cfg.map.track_candidates and n_cand > cfg.map.track_candidates:
-                print(f"[cli] WARNING frame {i}: {n_cand} in-frustum "
-                      f"candidates exceed track_candidates="
-                      f"{cfg.map.track_candidates}; newest "
-                      f"{n_cand - cfg.map.track_candidates} excluded from "
-                      "matching this frame")
-            # likewise the BA trust region (cfg.ba.max_pose_correction)
-            n_rej = int(out.ba_rejected_total)
-            if n_rej > ba_rejected_seen:
-                print(f"[cli] WARNING frame {i}: BA window update rejected "
-                      f"by the trust region (total {n_rej}) — correction "
-                      f"exceeded ba.max_pose_correction="
-                      f"{cfg.ba.max_pose_correction}")
-                ba_rejected_seen = n_rej
-            print(format_step(i, out))
-            if args.save_frames:
-                with timer.time("draw"):
-                    # current frame's keypoints green, inlier matches red
-                    draw.draw_frame(
-                        img.astype(np.uint8), out.kpts.numpy(), out.kpt_valid.numpy(),
-                        inlier_mask=out.kpt_inlier.numpy(),
-                        out_path=os.path.join(args.output, f"frame_{i:05d}.png"))
-            if args.checkpoint_every and (i + 1) % args.checkpoint_every == 0:
-                with timer.time("checkpoint"):
-                    save_state(os.path.join(args.output, f"state_{i:05d}.npz"),
-                               engine.state)
-    wall = time.perf_counter() - t_start
+        # prefetching loader: zlib inflate + the C++ row unfilter, on worker threads
+        print("[cli] frame loader: native C++")
+        est = []
+        kf_frames = []
+        # the warnings follow the engine's counters, which count from its state:
+        # after a resume, only new BA rejections
+        counters = engine.counters
+        t_start = time.perf_counter()
+        with lg.torch_trace(args.profile_dir), FrameLoader(paths, H, W) as loader:
+            it = enumerate(loader)
+            while True:
+                try:  # stop on an unreadable frame, keeping the results so far
+                    i, img = next(it)
+                except StopIteration:
+                    break
+                except IOError as e:
+                    print(f"[cli] frame read failed: {e}; stopping")
+                    break
+                before = dict(counters)
+                with lg.timed("vo_step"):
+                    out = engine.add_frame(img)
+                grew = {k for k, v in counters.items() if v > before[k]}
+                est.append(out.T_w_c.numpy())
+                if "keyframes" in grew:
+                    kf_frames.append(i)
+                # tracking candidate-pool pressure must be visible, not silent
+                if "candidates.overflows" in grew:
+                    n_cand = int(out.n_candidates)
+                    print(f"[cli] WARNING frame {i}: {n_cand} in-frustum "
+                          f"candidates exceed track_candidates="
+                          f"{cfg.map.track_candidates}; newest "
+                          f"{n_cand - cfg.map.track_candidates} excluded from "
+                          "matching this frame")
+                # likewise the BA trust region (cfg.ba.max_pose_correction)
+                if "ba.rejections" in grew:
+                    print(f"[cli] WARNING frame {i}: BA window update rejected "
+                          f"by the trust region (total {int(out.ba_rejected_total)}) — "
+                          f"correction exceeded ba.max_pose_correction="
+                          f"{cfg.ba.max_pose_correction}")
+                print(lg.format_step(i, out))
+                if args.save_frames:
+                    with lg.timed("draw"):
+                        # current frame's keypoints green, inlier matches red
+                        draw.draw_frame(
+                            img.astype(np.uint8), out.kpts.numpy(), out.kpt_valid.numpy(),
+                            inlier_mask=out.kpt_inlier.numpy(),
+                            out_path=os.path.join(args.output, f"frame_{i:05d}.png"))
+                if args.checkpoint_every and (i + 1) % args.checkpoint_every == 0:
+                    with lg.timed("checkpoint"):
+                        save_state(os.path.join(args.output, f"state_{i:05d}.npz"),
+                                   engine.state)
+        wall = time.perf_counter() - t_start
 
     # ---- outputs ----------------------------------------------------------
     est = np.stack(est) if est else np.zeros((0, 4, 4))
@@ -227,7 +230,7 @@ def main(argv=None) -> int:
     with open(os.path.join(args.output, "report.json"), "w") as f:
         json.dump(report, f, indent=2)
     print(f"[cli] report: {json.dumps(report)}")
-    print(timer.summary())
+    print(lg.summary(engine.counters))
     return 0
 
 

@@ -29,6 +29,15 @@ such a program with static buffers for its inputs:
 - **Memory.** Each graph has its own memory pool (``torch.cuda.graph``'s
   default): the stage programs of one engine replay in any order, which a
   shared pool allows only in capture order.
+- **Spans.** ``spans=`` names the program's stages (``utils/logging.py``).
+  A program first called while spans are on owns a slot buffer
+  (``slots``): each run (the warm-up, the capture, every replay) writes a
+  timestamp when it starts, one at each ``logging.mark`` inside ``fn`` and
+  one after its tail (``logging.record_marks`` reads them back as spans).
+  Otherwise nothing is marked. The warm-up and the capture are the host
+  spans ``capture.warmup`` and ``capture.graph``, whose seconds are
+  ``warmup_s`` and ``capture_s``; ``pool_bytes`` is the card memory the
+  graph's pool holds after the capture.
 - **Counters.** ``hamming_nn_top2.launches``, ``ba_update_state.calls``
   and ``ba_update_state_dist.calls`` count in Python, so a replay would not
   move them. The capture records what one call adds to each and each replay
@@ -44,9 +53,9 @@ Nothing is captured or built when this module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import gc
-import time
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
@@ -55,6 +64,7 @@ from monocular_visual_odometry_tpu_torch.models import ba
 from monocular_visual_odometry_tpu_torch.ops import consts, features
 from monocular_visual_odometry_tpu_torch.ops.cuda import hamming
 from monocular_visual_odometry_tpu_torch.parallel import dist_ba
+from monocular_visual_odometry_tpu_torch.utils import logging as lg
 
 # the Python-side counters a replay moves: name -> (function, attribute)
 COUNTERS = {"hamming_nn_top2": (hamming.hamming_nn_top2, "launches"),
@@ -105,18 +115,24 @@ class CapturedStep:
     ``fn`` appends to, if any. Attributes: ``calls``, ``replays``,
     ``per_call`` (what one call adds to each counter), ``per_call_record``
     (what one call appends to the mesh's record), ``warmup_s`` and
-    ``capture_s`` (seconds of the first call's warm-up and capture). A call
-    is :meth:`load` then :meth:`replay` (capturing first on a card); a
-    profile replays a loaded program on its own."""
+    ``capture_s`` (seconds of the first call's warm-up and capture),
+    ``pool_bytes`` (the graph pool's card memory after the capture);
+    ``spans``: the program's span names, ``slots``: its slot buffer (None
+    unless spans were on at its first call). A call is :meth:`load` then
+    :meth:`replay` (capturing first on a card); a profile replays a loaded
+    program on its own."""
 
-    def __init__(self, fn: Callable, *, graph: bool = True, mesh=None):
+    def __init__(self, fn: Callable, *, graph: bool = True, mesh=None,
+                 spans: Sequence[str] = ()):
         self.fn = fn
         self.graph = graph
         self.mesh = mesh
+        self.spans = tuple(spans)
+        self.slots = None
         self.calls = self.replays = 0
         self.per_call: dict = {}
         self.per_call_record: list = []
-        self.warmup_s = self.capture_s = None
+        self.warmup_s = self.capture_s = self.pool_bytes = None
         self._spec = None      # the inputs' structure
         self._bufs = None      # input buffers, flat (None where the input is None)
         self._n_state = 0      # the first _n_state buffers are the state's
@@ -136,6 +152,9 @@ class CapturedStep:
             self._spec = spec
             self._n_state = len(tree_flatten(state)[0])
             self._bufs = [None if t is None else t.clone() for t in leaves]
+            if self.spans and lg.spans_on():
+                self.slots = torch.empty(len(self.spans) + 1, dtype=torch.int64,
+                                         device=self._bufs[0].device)
             return
         if spec != self._spec:
             raise ValueError(f"CapturedStep: the inputs' structure changed:\n{spec}\n"
@@ -156,55 +175,64 @@ class CapturedStep:
 
     # -- the program ----------------------------------------------------------
 
+    def _marked(self):
+        """One run's markers (``logging.marking``), or nothing."""
+        return (contextlib.nullcontext() if self.slots is None
+                else lg.marking(self.spans, self.slots))
+
     def _body(self):
         """``fn`` on the buffers, then :func:`finish`. Returns the outputs
         (``fn``'s results after the state)."""
         st, *args = self._inputs()
-        new, *outs = self.fn(st, *args)
-        if tree_flatten(new)[1] != tree_flatten(st)[1]:
-            raise ValueError("CapturedStep: fn's new state has another structure than its "
-                             "input state")
-        return finish(self._bufs[:self._n_state], new, outs, self._bufs)
+        with self._marked():
+            new, *outs = self.fn(st, *args)
+            if tree_flatten(new)[1] != tree_flatten(st)[1]:
+                raise ValueError("CapturedStep: fn's new state has another structure than its "
+                                 "input state")
+            return finish(self._bufs[:self._n_state], new, outs, self._bufs)
 
     def _capture(self) -> None:
         before, n_before = _counts(), self._n_record()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        t0 = time.perf_counter()
-        with torch.cuda.stream(side):
-            st, *args = self._inputs()
-            self.fn(st, *args)  # warm-up: libraries, constants, the kernel's set-up
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        warm, n_warm = _counts(), self._n_record()
-        sizes = [c.cache_info().currsize for c in _CACHES]
-        graph = torch.cuda.CUDAGraph()
-        # Python's cycle collector must not run inside the capture: a graph
-        # it destroys there (an engine gone out of use) frees memory, which a
-        # capture does not permit, and the capture fails. thread_local:
-        # another thread (the CLI's frame loader) may use the CUDA API.
-        gc.collect()
-        was_enabled = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                outs = self._body()
-        finally:
-            if was_enabled:
-                gc.enable()
-        torch.cuda.synchronize()
-        after = _counts()
-        if [c.cache_info().currsize for c in _CACHES] != sizes:
-            raise RuntimeError("CapturedStep: a cached device constant was created during the "
-                               "capture (the warm-up must create every one)")
-        for k, (f, a) in COUNTERS.items():
-            setattr(f, a, before[k])
-        self.per_call = {k: after[k] - warm[k] for k in COUNTERS}
-        if self.mesh is not None:
-            self.per_call_record = self.mesh.record[n_warm:]
-            del self.mesh.record[n_before:]
-        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+        with lg.timed("capture.warmup") as warmup:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), self._marked():
+                st, *args = self._inputs()
+                self.fn(st, *args)  # warm-up: libraries, constants, the kernel's set-up
+            torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
+        with lg.timed("capture.graph") as capture:
+            warm, n_warm = _counts(), self._n_record()
+            sizes = [c.cache_info().currsize for c in _CACHES]
+            graph = torch.cuda.CUDAGraph()
+            # Python's cycle collector must not run inside the capture: a graph
+            # it destroys there (an engine gone out of use) frees memory, which a
+            # capture does not permit, and the capture fails. thread_local:
+            # another thread (the CLI's frame loader) may use the CUDA API.
+            gc.collect()
+            reserved = torch.cuda.memory_reserved()
+            was_enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    outs = self._body()
+            finally:
+                if was_enabled:
+                    gc.enable()
+            torch.cuda.synchronize()
+            # the graph's own pool is new: what the capture added is what it holds
+            self.pool_bytes = torch.cuda.memory_reserved() - reserved
+            after = _counts()
+            if [c.cache_info().currsize for c in _CACHES] != sizes:
+                raise RuntimeError("CapturedStep: a cached device constant was created during "
+                                   "the capture (the warm-up must create every one)")
+            for k, (f, a) in COUNTERS.items():
+                setattr(f, a, before[k])
+            self.per_call = {k: after[k] - warm[k] for k in COUNTERS}
+            if self.mesh is not None:
+                self.per_call_record = self.mesh.record[n_warm:]
+                del self.mesh.record[n_before:]
+        self.warmup_s, self.capture_s = warmup.seconds, capture.seconds
         self._cuda_graph, self._outs = graph, outs
 
     def _graphed(self) -> bool:

@@ -62,6 +62,7 @@ from monocular_visual_odometry_tpu_torch.ops.consts import take
 from monocular_visual_odometry_tpu_torch.ops.features import FrameFeatures, features_from_config
 from monocular_visual_odometry_tpu_torch.ops.ransac import split_key, uniforms
 from monocular_visual_odometry_tpu_torch.parallel import dist_ba
+from monocular_visual_odometry_tpu_torch.utils import logging as lg
 from monocular_visual_odometry_tpu_torch.utils.config import VOConfig
 
 _DEG = math.pi / 180.0
@@ -215,6 +216,7 @@ def step_init(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor, *,
     Returns (new state, StepOutput)."""
     dev = img.device
     feats = features_from_config(img, cfg.orb) if feats is None else feats
+    lg.mark("init.features")
     rng, k_est = _next_key(st)
     ref = st.ref_feats
 
@@ -222,6 +224,7 @@ def step_init(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor, *,
                feats.kpts, cfg.match.max_pixel_dist_init)
     uv1 = ref.kpts[m.query_idx]
     uv2 = feats.kpts[m.train_idx]
+    lg.mark("init.match")
 
     tv = twoview.estimate_relative_pose(
         uv1, uv2, m.valid, cam, k_est,
@@ -233,6 +236,7 @@ def step_init(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor, *,
     )
     T_2_1 = lie.rt_to_T(tv.R, tv.t)
     angles = twoview.triangulation_angles(tv.pts3d_c1, T_2_1)
+    lg.mark("init.twoview")
     good = _angle_filter(angles, tv.inliers, cfg)
 
     n_good = torch.sum(good)
@@ -360,10 +364,12 @@ def step_track(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
     features, keypoint links)."""
     dev = img.device
     feats = features_from_config(img, cfg.orb) if feats is None else feats
+    lg.mark("track.features")
     rng, k_pnp = _next_key(st)
     c = track_candidates(cfg, cam, st, height=height, width=width)
     m = match_candidates(cfg, c, feats)
     uv = feats.kpts[m.train_idx]
+    lg.mark("track.match")
 
     res = pnp.solve_pnp_ransac(
         c.pts, uv, m.valid, cam, k_pnp,
@@ -407,6 +413,7 @@ def step_track(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
         ba_rejected_total=st.ba_rejected,
         n_candidates=torch.sum(c.candidates, dtype=torch.int32),
     )
+    lg.mark("track.pnp")
     return new, out, feats, curr_mp
 
 
@@ -659,6 +666,7 @@ def _track_frame(cfg: VOConfig, cam: Camera, st: S.VOState, img: torch.Tensor,
         solved = (ba.ba_update_state(cfg, cam, new) if mesh is None
                   else dist_ba.ba_update_state_dist(cfg, cam, mesh, new))
         new = _tree_select(out.tracking_ok, solved, new)
+    lg.mark("track.ba")
     kf_new = keyframe_update(cfg, cam, new, feats, curr_mp, height=height, width=width, u=d.epi)
     new = _tree_select(out.is_keyframe, kf_new, new)
     return new, out._replace(T_w_c=new.T_w_c, n_map_points=new.map.n_valid,
@@ -696,11 +704,14 @@ def general_batched_body(cfg: VOConfig, cam: Camera, sts: S.VOState, imgs: torch
 
     def one(st, img, d):
         feats = features_from_config(img, cfg.orb)
+        lg.mark("batch.features")
         s_first, o_first = step_first(cfg, cam, st, img, feats=feats)
         s_init, o_init = step_init(cfg, cam, st, img, u_e=d.init_e, u_h=d.init_h,
                                    G_e=d.init_G, feats=feats)
+        lg.mark("batch.init")
         s_track, o_track = _track_frame(cfg, cam, st, img, d, height=height, width=width,
                                         feats=feats)
+        lg.mark("batch.track")
         blank = st.stage == S.STAGE_BLANK
         init = st.stage == S.STAGE_INITIALIZING
         return (_tree_select(blank, s_first, _tree_select(init, s_init, s_track)),
@@ -712,6 +723,14 @@ def general_batched_body(cfg: VOConfig, cam: Camera, sts: S.VOState, imgs: torch
 # ---------------------------------------------------------------------------
 # captured programs: the single-stream stages and the batched bodies
 # ---------------------------------------------------------------------------
+
+
+# the stage programs' spans (utils/logging.py), in the order they run: each
+# ends at the ``lg.mark`` of its name, the last one at the program's end
+TRACK_SPANS = ("track.features", "track.match", "track.pnp", "track.ba", "track.keyframe")
+INIT_SPANS = ("init.features", "init.match", "init.twoview", "init.gate")
+GENERAL_SPANS = ("batch.features", "batch.init", "batch.track", "batch.select")
+_STAGE_SPANS = {S.STAGE_INITIALIZING: INIT_SPANS, S.STAGE_TRACKING: TRACK_SPANS}
 
 
 def _snapshot(record):
@@ -747,7 +766,8 @@ class StagePrograms:
     ``mesh.record``; gloo's collectives cannot be captured, so under gloo
     the tracking program runs eagerly on its buffers (``captured_stages``
     lists the stages that are graphs). The first-frame and init programs
-    call no collective.
+    call no collective. While spans are on, the init and tracking programs
+    are made with their spans (``INIT_SPANS``, ``TRACK_SPANS``).
 
     ``programs(st, img, stage, key)`` advances ``st`` (its key ``key`` and
     stage ``stage`` held on the host) by one frame: returns (new state
@@ -783,11 +803,15 @@ class StagePrograms:
         if prog is None:
             prog = self.programs[stage] = CapturedStep(
                 self._fn(stage), graph=stage in self.captured_stages,
-                mesh=self.mesh if stage == S.STAGE_TRACKING else None)
-        return prog(st._replace(rng=None), img, _stage_draws(self.cfg, stage, key, self.device))
+                mesh=self.mesh if stage == S.STAGE_TRACKING else None,
+                spans=_STAGE_SPANS.get(stage, ()))
+        with lg.span("engine.draws"):
+            d = _stage_draws(self.cfg, stage, key, self.device)
+        with lg.span("engine.launch"):
+            return prog(st._replace(rng=None), img, d)
 
 
-_BATCHED: dict = {}  # (kind, B, cfg, cam, H, W, device) -> CapturedStep
+_BATCHED: dict = {}  # (kind, B, cfg, cam, H, W, device, spans on) -> CapturedStep
 
 
 def release_batched() -> int:
@@ -805,11 +829,12 @@ def _batched_program(kind: str, cfg: VOConfig, cam: Camera, b: int, height: int,
                      device) -> CapturedStep:
     """The batched body of ``kind`` ("tracking" or "general") as a
     ``CapturedStep`` whose last output is ``[stage before, is_keyframe]``
-    [2,B] (the step's one readback); on a card a graph."""
+    [2,B] (the step's one readback); on a card a graph. While spans are on,
+    the general body is made with its spans (``GENERAL_SPANS``)."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    key = (kind, b, cfg, cam, height, width, str(device))
+    key = (kind, b, cfg, cam, height, width, str(device), lg.spans_on())
     prog = _BATCHED.get(key)
     if prog is None:
         body = tracking_batched_body if kind == "tracking" else general_batched_body
@@ -818,7 +843,7 @@ def _batched_program(kind: str, cfg: VOConfig, cam: Camera, b: int, height: int,
             new, out = body(cfg, cam, sts, imgs, draws, height=height, width=width)
             return new, out, torch.stack([sts.stage, out.is_keyframe.to(sts.stage.dtype)])
 
-        prog = _BATCHED[key] = CapturedStep(fn)
+        prog = _BATCHED[key] = CapturedStep(fn, spans=GENERAL_SPANS if kind == "general" else ())
     return prog
 
 
@@ -827,14 +852,24 @@ def _step_batched(kind, cfg, cam, sts, imgs, height, width, draws):
     both valid until the program's next call."""
     imgs = _frames_on(imgs, sts.T_w_c.device).to(torch.float32)
     if draws is None:
-        draws = (draw_batched if kind == "tracking" else draw_general)(cfg, sts.rng, imgs.device)
+        with lg.span("batch.draws"):
+            draws = (draw_batched if kind == "tracking" else draw_general)(cfg, sts.rng,
+                                                                           imgs.device)
     prog = _batched_program(kind, cfg, cam, imgs.shape[0], height, width, imgs.device)
-    new, out, flags = prog(sts._replace(rng=None), imgs, draws)
-    stage, is_kf = flags.cpu().tolist()
+    with lg.span("batch.launch"):
+        new, out, flags = prog(sts._replace(rng=None), imgs, draws)
+    with lg.span("batch.readback"):
+        if prog.slots is None:
+            flags = flags.cpu()
+        else:
+            flags, slots = _bytes_to_host([flags, prog.slots])
+            lg.record_marks(prog.spans, slots)
+    stage, is_kf = flags.tolist()
     if kind == "tracking" and any(s != S.STAGE_TRACKING for s in stage):
         raise ValueError("step_tracking_batched: every stream must be tracking "
                          f"(stage {S.STAGE_TRACKING}); stages {stage}")
-    return new._replace(rng=_next_keys(sts.rng, stage, is_kf)), out
+    with lg.span("batch.keys"):
+        return new._replace(rng=_next_keys(sts.rng, stage, is_kf)), out
 
 
 def step_tracking_batched(cfg: VOConfig, cam: Camera, sts: S.VOState, imgs, *,
@@ -896,6 +931,13 @@ def run_sequences_general(cfg: VOConfig, cam: Camera, sts: S.VOState, frames, *,
     return _run_batched("general", cfg, cam, sts, frames, height, width)
 
 
+# VOEngine's counters, by name
+COUNTERS = ("frames.first", "frames.init", "frames.track", "inits.held", "keyframes",
+            "tracking.failures", "ba.rejections", "candidates.overflows")
+_FRAMES = {S.STAGE_BLANK: "frames.first", S.STAGE_INITIALIZING: "frames.init",
+           S.STAGE_TRACKING: "frames.track"}
+
+
 class VOEngine:
     """The host side: threads a VOState through the step one frame at a time
     and hands each frame's StepOutput back on the host.
@@ -916,7 +958,19 @@ class VOEngine:
 
     ``state`` reads a copy of the engine's state on the fused route (the
     stage programs' buffers change with the next frame); setting it reads
-    the new state's stage back once."""
+    the new state's stage back once (and, for a tracking state, its BA
+    rejections).
+
+    ``counters`` (:data:`COUNTERS`, always kept): host integers counted from
+    each frame's ``StepOutput`` as it comes back: frames per stage program
+    (the init program's frames are the init attempts), inits that held,
+    keyframes, tracking failures, BA trust-region rejections (the growth of
+    ``ba_rejected_total``) and frames whose in-frustum candidates overflow
+    ``cfg.map.track_candidates``. While spans are on (``utils/logging.py``)
+    ``add_frame`` records the host spans ``engine.copy``, ``engine.draws``,
+    ``engine.launch``, ``engine.readback`` and ``engine.finish``, and the
+    device spans of the init and tracking programs come back with each
+    frame's readback."""
 
     def __init__(self, cfg: VOConfig, height: int, width: int, seed: int = 0,
                  device="cuda", fused: bool = True, mesh=None):
@@ -937,6 +991,7 @@ class VOEngine:
                                  cfg.dataset.cx, cfg.dataset.cy)
         self.stages = (StagePrograms(cfg, self.cam, height, width, self.device, mesh=mesh)
                        if fused else None)
+        self.counters = dict.fromkeys(COUNTERS, 0)
         self.state = S.init_state(cfg, seed, self.device)
 
     @property
@@ -951,32 +1006,60 @@ class VOEngine:
     @state.setter
     def state(self, st: S.VOState) -> None:
         self._state, self._stage = st, int(st.stage)
+        # the baseline of the BA rejections: a first-frame or init program
+        # leaves the count as it was, so its output gives it
+        self._rejected = int(st.ba_rejected) if self._stage == S.STAGE_TRACKING else None
 
     def add_frame(self, img) -> S.StepOutput:
         """Process one grayscale image [H,W] (uint8 or float). Returns the
         StepOutput with every field on the CPU, read back with one wait."""
-        img = torch.as_tensor(np.asarray(img), dtype=torch.float32)
-        # a pinned copy goes up without waiting on the stream
-        img = img.pin_memory().to(self.device, non_blocking=True) if self.device.type == "cuda" \
-            else img
+        with lg.span("engine.copy"):
+            img = torch.as_tensor(np.asarray(img), dtype=torch.float32)
+            # a pinned copy goes up without waiting on the stream
+            img = img.pin_memory().to(self.device, non_blocking=True) \
+                if self.device.type == "cuda" else img
         if not self.fused:
-            return self._add_frame_staged(img)
-        key = int(self._state.rng)
-        new, out = self.stages(self._state, img, self._stage, key)
-        out = output_to_host(out)
-        key = _advance_key(key, self._stage, bool(out.is_keyframe))
-        self._state = new._replace(rng=torch.tensor(key, dtype=torch.int64))
-        self._stage = int(out.stage)
+            stage = int(self._state.stage)
+            out = self._add_frame_staged(img, stage)
+            self._count(stage, out)
+            return out
+        stage, key = self._stage, int(self._state.rng)
+        new, out = self.stages(self._state, img, stage, key)
+        with lg.span("engine.readback"):
+            prog = self.stages.programs[stage]
+            if prog.slots is None:
+                out = output_to_host(out)
+            else:
+                out, slots = output_to_host(out, prog.slots)
+                lg.record_marks(prog.spans, slots)
+        with lg.span("engine.finish"):
+            key = _advance_key(key, stage, bool(out.is_keyframe))
+            self._state = new._replace(rng=torch.tensor(key, dtype=torch.int64))
+            self._stage = int(out.stage)
+            self._count(stage, out)
         return out
 
-    def _add_frame_staged(self, img: torch.Tensor) -> S.StepOutput:
-        """The staged route (JAX's ``_add_frame_staged``): the stage entry
-        points and ``ba_update_state`` one call after another. The tracking
-        stage's output is read back (one wait) and decides BA and the
-        keyframe update on the host; the pose, map count and BA rejections
-        after them come back with one more."""
+    def _count(self, stage: int, out: S.StepOutput) -> None:
+        """The counters after a frame run in ``stage`` (``out`` on the host)."""
+        c = self.counters
+        c[_FRAMES[stage]] += 1
+        c["inits.held"] += stage == S.STAGE_INITIALIZING and int(out.stage) == S.STAGE_TRACKING
+        c["keyframes"] += bool(out.is_keyframe)
+        c["tracking.failures"] += not bool(out.tracking_ok)
+        cap = self.cfg.map.track_candidates
+        c["candidates.overflows"] += bool(cap) and int(out.n_candidates) > cap
+        rejected = int(out.ba_rejected_total)
+        if self._rejected is not None:
+            c["ba.rejections"] += max(rejected - self._rejected, 0)
+        self._rejected = rejected
+
+    def _add_frame_staged(self, img: torch.Tensor, stage: int) -> S.StepOutput:
+        """The staged route (JAX's ``_add_frame_staged``) for a frame in
+        ``stage``: the stage entry points and ``ba_update_state`` one call
+        after another. The tracking stage's output is read back (one wait)
+        and decides BA and the keyframe update on the host; the pose, map
+        count and BA rejections after them come back with one more."""
         cfg, cam = self.cfg, self.cam
-        stage = int(self._state.stage)
         if stage == S.STAGE_BLANK:
             self._state, out = step_first(cfg, cam, self._state, img)
             return output_to_host(out)
@@ -996,15 +1079,21 @@ class VOEngine:
                                            ba_rejected_total=st.ba_rejected))
 
 
-def output_to_host(out: S.StepOutput) -> S.StepOutput:
+def output_to_host(out: S.StepOutput, slots: Optional[torch.Tensor] = None):
     """``out`` with every field on the CPU, same dtypes, shapes and values,
     read back with one wait (:func:`_bytes_to_host`; a ``.cpu()`` per field
-    would wait once per field). CPU fields are returned as they are."""
-    on_card = [t for t in out if t.is_cuda]
+    would wait once per field). CPU fields are returned as they are. With
+    ``slots`` (a marked program's slot buffer) they come back in the same
+    copy, and the result is ``(out, slots)``."""
+    fields = list(out) if slots is None else [*out, slots]
+    on_card = [t for t in fields if t.is_cuda]
     if not on_card:
-        return out
+        return out if slots is None else (out, slots)
     back = iter(_bytes_to_host(on_card))
-    return S.StepOutput(*(next(back) if t.is_cuda else t for t in out))
+    fields = [next(back) if t.is_cuda else t for t in fields]
+    if slots is None:
+        return S.StepOutput(*fields)
+    return S.StepOutput(*fields[:-1]), fields[-1]
 
 
 def _bytes_to_host(tensors: list) -> list:

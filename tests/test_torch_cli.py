@@ -6,7 +6,9 @@ sequence (pixels equal to JAX ``render_sequence``'s, truth file byte-equal),
 writes trajectory rows equal to an in-process ``VOEngine(device="cpu")``
 run on the same frames (to the 6 written decimals), and a ``report.json``
 with the JAX CLI's keys; without ``--cpu`` and without a card it exits
-non-zero.
+non-zero. Its summary prints the span totals (its own ``vo_step``, ``draw``
+and ``checkpoint``; with ``--profile-dir`` the engine's spans too, which its
+trace then carries) and the engine's counters.
 """
 
 import contextlib
@@ -25,6 +27,7 @@ from monocular_visual_odometry_tpu.data import synthetic as jsyn
 from monocular_visual_odometry_tpu_torch import cli
 from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
 from monocular_visual_odometry_tpu_torch.runtime import decode_png
+from monocular_visual_odometry_tpu_torch.utils import logging as lg
 from monocular_visual_odometry_tpu_torch.utils import io as tio
 from monocular_visual_odometry_tpu_torch.utils.config import VOConfig
 
@@ -67,6 +70,27 @@ def test_cli_runs_and_writes_its_outputs(run):
                  "state_00003.npz", "state_00007.npz"] + [f"frame_{i:05d}.png" for i in range(N)]:
         assert (out / name).stat().st_size > 0, name
     assert tio.read_trajectory(out / "cam_traj.txt").shape == (N, 4, 4)
+
+
+def _rows(stdout):
+    """The summary's rows: {name: the numbers after it}."""
+    return {m[0]: m[1].split() for m in re.findall(r"^([a-z_.]+) +([\d. ]+)$", stdout, re.M)}
+
+
+def test_summary_prints_the_span_totals_and_the_counters(run):
+    """A row per span (calls, total s, mean ms: the form ``chip_smoke.py``
+    reads), the engine's spans only with spans on (not here), and the
+    counters, which match the banners."""
+    _, _, stdout = run
+    rows = _rows(stdout)
+    assert rows["vo_step"][0] == rows["draw"][0] == str(N) and rows["checkpoint"][0] == "2"
+    assert not any(k.startswith("engine.") for k in rows)
+    banners = re.findall(r"^frame +\d+ \[(\w+) *\].*(KF|  ) (ok|TRACK-FAIL)$", stdout, re.M)
+    assert len(banners) == N
+    assert int(rows["keyframes"][0]) == sum(kf == "KF" for _, kf, _ in banners)
+    assert int(rows["frames.first"][0]) == 1
+    assert sum(int(rows[f"frames.{k}"][0]) for k in ("first", "init", "track")) == N
+    assert not lg.spans_on()
 
 
 def test_rendered_sequence_equals_jax(run, tmp_path):
@@ -124,6 +148,15 @@ def test_resume_without_matplotlib_and_with_a_trace(run, tmp_path, monkeypatch):
     assert not (tmp_path / "trajectory.png").exists()
     assert tio.read_trajectory(tmp_path / "cam_traj.txt").shape == (3, 4, 4)
     assert (tmp_path / "report.json").exists() and (tmp_path / "trace" / "trace.json").exists()
+    # --profile-dir turned spans on for the run: the trace has the engine's
+    # ranges and the summary their totals; off again afterwards
+    trace = (tmp_path / "trace" / "trace.json").read_text()
+    assert '"vo.engine.launch"' in trace and '"vo.vo_step"' in trace
+    rows = _rows(stdout)
+    assert rows["engine.launch"][0] == rows["vo_step"][0] == "3"
+    # the resumed state is past its first frame: each frame ran a marked program
+    assert sum(int(rows.get(f"{p}.features", ["0"])[0]) for p in ("init", "track")) == 3
+    assert not lg.spans_on()
 
 
 def test_cuda_without_a_card_exits_non_zero(run):

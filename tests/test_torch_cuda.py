@@ -56,6 +56,7 @@ from monocular_visual_odometry_tpu_torch.ops import lie as TL
 from monocular_visual_odometry_tpu_torch.ops import matching as TM
 from monocular_visual_odometry_tpu_torch.ops.camera import Camera
 from monocular_visual_odometry_tpu_torch.ops.cuda import hamming as TH
+from monocular_visual_odometry_tpu_torch.utils import logging as LG
 from monocular_visual_odometry_tpu_torch.utils.config import VOConfig
 
 
@@ -662,6 +663,42 @@ def test_a_replay_of_the_tracking_graph_runs_the_kernel(card):
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("hamming_nn_top2" in n for n in names) == 2, len(names)
+
+
+@pytest.mark.cuda
+def test_span_markers_time_a_replay_in_stream_order(card):
+    """With spans on, one replayed tracking frame shows its marker kernels
+    in a profile, none overlapping another kernel, the matcher's two
+    launches inside the match and keyframe spans; the slots' spans
+    (``%globaltimer``) add up to the profile's time from the first marker to
+    the last."""
+    cfg = VOConfig()
+    frames, _ = TSYN.render_sequence_arrays(10, seed=0, translation_step=0.05)
+    with LG.spans(True):
+        eng = TV.VOEngine(cfg, 480, 640, device="cuda")
+        for f in frames[:9]:
+            eng.add_frame(f)
+        assert eng._stage == TS.STAGE_TRACKING
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(256):   # a profile may lose the device records at its start
+                torch.cuda._sleep(100)
+            eng.add_frame(frames[9])
+            torch.cuda.synchronize()
+        spans = LG.last_marks()
+    ev = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                for e in prof.profiler.kineto_results.events()
+                if e.device_type() == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in e.name())
+    marks = [(a, b) for a, b, n in ev if "span_mark" in n]
+    assert list(spans) == list(TV.TRACK_SPANS) and len(marks) == len(spans) + 1
+    others = [(a, b) for a, b, n in ev if "span_mark" not in n]
+    assert not [m for m in marks for o in others if o[0] < m[1] and m[0] < o[1]]
+    ham = [a for a, _, n in ev if "hamming_nn_top2" in n]
+    assert len(ham) == 2
+    assert marks[1][0] < ham[0] < marks[2][0] and marks[4][0] < ham[1] < marks[5][0]
+    between = (marks[-1][0] - marks[0][0]) / 1e6
+    assert sum(spans.values()) == pytest.approx(between, rel=0.02, abs=0.05)
 
 
 @pytest.fixture

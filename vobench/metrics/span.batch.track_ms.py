@@ -1,0 +1,11 @@
+"""Device ms of the general batched body's tracking branch (with BA and the
+keyframe update): between its ``batch.init`` and ``batch.track`` markers.
+Median over the slice's steps of that program; read by ``harness/spans.py``
+from the slice run again with the port's spans on; None where the port has no
+spans."""
+
+from harness import spans
+
+
+def read(trace):
+    return spans.read(trace, "span.batch.track_ms")
