@@ -21,7 +21,12 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    input: one train point (launch, set-up, the gate pass over one stage
    buffer, which has a fixed size, and the merge; next to no staging), r=0
    (the same plus staging the whole train set, no popcounts), the main
-   path's r (all of it);
+   path's r (all of it); then the BA LM kernel (``ba_lm_pose``, BA_SHAPES:
+   the live window, in float64 too, the parity width, an 8-frame window and
+   the batch cell's B = 25 as one vmapped launch) against its plain version
+   (``models/ba.py::lm_loop``) on the card, poses within BA_TOL, each
+   stream of the batched launch equal to its own launch, one launch per
+   call; its device and eager ms beside the plain version's, and its bound;
 4. main path: renders the 150-frame synthetic benchmark in memory and runs the
    port's ``VOEngine`` (default config at full width, windowed BA on) on
    ``cuda``: the graph route, one replay of a captured stage program and one
@@ -30,7 +35,8 @@ Phases (any failure exits non-zero; nothing is caught and turned into a pass):
    every kernel of the path launched once per ``match_features`` call
    (counted per replay: a tracking frame runs the keyframe update's match
    too), ``ba_update_state`` was computed once per tracking frame (applied
-   where ``tracking_ok`` held), one replay per frame (counts reset just
+   where ``tracking_ok`` held) and launched ``ba_lm_pose`` once per call
+   (this check also holds in 4c, 4e, 4f, 4g, 4i, 4j and 4k), one replay per frame (counts reset just
    before the run, read just after), and prints each stage's warm-up and
    capture seconds; in turns with it (graph, eager, eager, graph) the eager
    host-branch ``step`` over the same frames (BA computed where
@@ -380,6 +386,17 @@ NCCL_SLEEP_S, NCCL_TIMEOUT_S = 10.0, 5.0  # the NCCL timeout check: stream busy,
 LIVE = dict(W=5, K=1024, M=4096)  # scaling.make_problem's live shape, joint mode
 LIVE_ITERS, LIVE_TURNS, LIVE_REPS = 20, 4, 3
 FP32_PEAK = 67e12        # H100 SXM, non-tensor fp32 FLOP/s
+FP64_PEAK = 34e12        # H100 SXM, non-tensor fp64 FLOP/s
+# the BA LM kernel (csrc/ba_lm_pose.cu): FLOPs of one observation in one pass
+# (projection, residual, Huber weight, 2x6 Jacobian, 21 + 6 products of H and
+# g: ``accumulate``), and of one frame's step (6x6 LU, se3_exp and the 4x4
+# product: ``frame_step``); a solve makes iterations + 1 passes
+BA_FLOPS_PER_OBS, BA_FLOPS_PER_STEP = 220, 400
+# phase 3's BA windows: (tag, W, K, M, batch, float64); the live shape, the
+# parity width, profile_drift_ab.py's 8-frame window, and the batch cell's B
+BA_SHAPES = (("live", 5, 1024, 4096, 1, False), ("live_f64", 5, 1024, 4096, 1, True),
+             ("parity", 5, 1500, 4096, 1, False), ("window8", 8, 1024, 4096, 1, False),
+             ("live_b25", 5, 1024, 4096, 25, False))
 HBM_BYTES_PER_S = 3.35e12
 # PR 1's wrapper (hamming.py) and kernel (hamming_nn_top2.cu), for the A/B
 # in turns; placed here by hand, never reached by the package
@@ -630,6 +647,7 @@ def _drive(cfg, frames, gt, mesh=None, route="graph"):
     from monocular_visual_odometry_tpu_torch.models import ba as BA
     from monocular_visual_odometry_tpu_torch.models import state as S
     from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
+    from monocular_visual_odometry_tpu_torch.ops.cuda import ba_lm as BL
     from monocular_visual_odometry_tpu_torch.ops.cuda import hamming as HM
     from monocular_visual_odometry_tpu_torch.parallel import dist_ba as DB
     from monocular_visual_odometry_tpu_torch.utils import metrics
@@ -640,6 +658,7 @@ def _drive(cfg, frames, gt, mesh=None, route="graph"):
     torch.cuda.synchronize()
     HM.hamming_nn_top2.launches = 0
     BA.ba_update_state.calls = 0
+    BL.ba_lm_pose.launches = 0
     DB.ba_update_state_dist.calls = 0
     outs, n_fail, n_match, n_ba, n_applied, stage, per_frame = [], 0, 0, 0, 0, S.STAGE_BLANK, []
     n_captured = 0  # frames in a stage whose program is a graph
@@ -678,6 +697,7 @@ def _drive(cfg, frames, gt, mesh=None, route="graph"):
         launches=HM.hamming_nn_top2.launches, match_calls=n_match, mesh=mesh is not None,
         ba_calls=DB.ba_update_state_dist.calls if mesh else BA.ba_update_state.calls,
         other_ba_calls=BA.ba_update_state.calls if mesh else DB.ba_update_state_dist.calls,
+        ba_kernel=BL.ba_lm_pose.launches,
         ba_expected=n_ba, ba_applied=n_applied,
         captured=list(eng.captured_stages) if graph else [],
         replays=sum(p.replays for p in programs.values()), replays_expected=n_captured,
@@ -808,6 +828,17 @@ def _device_kernels(prof):
                   key=lambda r: -r[1])
 
 
+def _check_ba_kernel(name, cfg, launches, ba_calls, mesh=False):
+    """``ba_lm_pose`` launched once per ``ba_update_state`` call where the
+    landmarks are fixed (its LM is the kernel), never on the mesh route or in
+    the joint mode (their LMs are PyTorch's)."""
+    want = ba_calls if cfg.ba.fix_map_points and not mesh else 0
+    if launches != want:
+        raise AssertionError(f"{name}: ba_lm_pose launched {launches} times, expected {want} "
+                             f"({ba_calls} BA calls, fix_map_points {cfg.ba.fix_map_points}, "
+                             f"mesh {mesh})")
+
+
 def _check_counts(name, cfg, r):
     """The kernel launched once per ``match_features`` call (counted per
     replay on the graph route), BA computed once per tracking frame on the
@@ -829,6 +860,7 @@ def _check_counts(name, cfg, r):
                              f"{r['ba_expected']} (one per {per})")
     if r["other_ba_calls"]:
         raise AssertionError(f"{name}: the other BA route ran {r['other_ba_calls']} times")
+    _check_ba_kernel(name, cfg, r["ba_kernel"], r["ba_calls"], r["mesh"])
 
 
 def _sync_calls(fn):
@@ -1592,6 +1624,7 @@ def _phase_4f(frames, gt, main, run_path, cfg) -> int:
     from monocular_visual_odometry_tpu_torch.models import ba as BA
     from monocular_visual_odometry_tpu_torch.models import state as S
     from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
+    from monocular_visual_odometry_tpu_torch.ops.cuda import ba_lm as BL
     from monocular_visual_odometry_tpu_torch.ops.cuda import hamming as HM
     from monocular_visual_odometry_tpu_torch.runtime import FrameLoader, decode_png, write_png
     from monocular_visual_odometry_tpu_torch.utils import io as vio
@@ -1635,6 +1668,7 @@ def _phase_4f(frames, gt, main, run_path, cfg) -> int:
     torch.cuda.synchronize()
     HM.hamming_nn_top2.launches = 0
     BA.ba_update_state.calls = 0
+    BL.ba_lm_pose.launches = 0
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -1642,6 +1676,7 @@ def _phase_4f(frames, gt, main, run_path, cfg) -> int:
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches, ba_calls = HM.hamming_nn_top2.launches, BA.ba_update_state.calls
+    ba_launches = BL.ba_lm_pose.launches
     log = buf.getvalue()
     (Path(ROOT) / "build" / "cli_stdout.txt").write_text(log)
     print(f"4f: cli.main({argv}) -> {rc} in {cli_s:.2f} s; its [cli] lines:", flush=True)
@@ -1685,6 +1720,7 @@ def _phase_4f(frames, gt, main, run_path, cfg) -> int:
         raise AssertionError(f"4f: {launches} matcher launches, expected {n_match}")
     if ba_calls != n_ba or n_ba == 0:
         raise AssertionError(f"4f: {ba_calls} ba_update_state calls, expected {n_ba}")
+    _check_ba_kernel("4f", cfg, ba_launches, ba_calls)
     written = ["viewer.html"] + [f"frame_{i:05d}.png" for i in range(N_FRAMES)] + \
         [f"state_{i:05d}.npz" for i in range(CLI_CHECKPOINT_EVERY - 1, N_FRAMES,
                                               CLI_CHECKPOINT_EVERY)]
@@ -1850,6 +1886,7 @@ def _phase_4i_5pt(cfg, cam, frames, fresh):
     from monocular_visual_odometry_tpu_torch.models import ba as BA
     from monocular_visual_odometry_tpu_torch.models import state as S
     from monocular_visual_odometry_tpu_torch.models import vo as V
+    from monocular_visual_odometry_tpu_torch.ops.cuda import ba_lm as BL
     from monocular_visual_odometry_tpu_torch.ops.cuda import hamming as HM
 
     n = frames.shape[1]
@@ -1865,6 +1902,7 @@ def _phase_4i_5pt(cfg, cam, frames, fresh):
     torch.cuda.synchronize()
     HM.hamming_nn_top2.launches = 0
     BA.ba_update_state.calls = 0
+    BL.ba_lm_pose.launches = 0
     replays = prog.replays
     t0 = time.perf_counter()
     final, outs = V.run_sequences_general(cfg5, cam, sts, frames[:nb], height=H, width=W)
@@ -1888,6 +1926,7 @@ def _phase_4i_5pt(cfg, cam, frames, fresh):
     if replays != n or launches != 3 * n or ba_calls != n:
         raise AssertionError(f"4i five-point B={nb}: {replays} replays, {launches} matcher "
                              f"launches, {ba_calls} BA calls in {n} steps")
+    _check_ba_kernel(f"4i five-point B={nb}", cfg5, BL.ba_lm_pose.launches, ba_calls)
     if any(s_ != S.STAGE_TRACKING for s_ in r5["stage"]):
         raise AssertionError(f"4i five-point B={nb}: final stages {r5['stage']}")
     k = GENERAL_5PT_EAGER_STEPS
@@ -1925,6 +1964,7 @@ def _phase_4i(cfg, batch_seqs, single, rates):
     from monocular_visual_odometry_tpu_torch.models import state as S
     from monocular_visual_odometry_tpu_torch.models import vo as V
     from monocular_visual_odometry_tpu_torch.ops import lie
+    from monocular_visual_odometry_tpu_torch.ops.cuda import ba_lm as BL
     from monocular_visual_odometry_tpu_torch.ops.cuda import hamming as HM
     from monocular_visual_odometry_tpu_torch.utils import metrics
 
@@ -1959,6 +1999,7 @@ def _phase_4i(cfg, batch_seqs, single, rates):
         torch.cuda.synchronize()
         HM.hamming_nn_top2.launches = 0
         BA.ba_update_state.calls = 0
+        BL.ba_lm_pose.launches = 0
         t0 = time.perf_counter()
         prog = V._batched_program("general", cfg, cam, nb, H, W, frames.device)
         replays = prog.replays
@@ -1999,6 +2040,7 @@ def _phase_4i(cfg, batch_seqs, single, rates):
                                  f"(init, tracking and keyframe update, per step)")
         if ba_calls != n:
             raise AssertionError(f"4i B={nb}: {ba_calls} ba_update_state calls, expected {n}")
+        _check_ba_kernel(f"4i B={nb}", cfg, BL.ba_lm_pose.launches, ba_calls)
         for b in range(nb):
             if r["stage"][b] != S.STAGE_TRACKING or r["n_fail"][b] > 5:
                 raise AssertionError(f"4i B={nb}: stream {b} stage {r['stage'][b]}, "
@@ -2316,6 +2358,7 @@ def _eval_program(name, c, cam, streams, seqs, tag="4j", n=EVAL_FRAMES):
     from monocular_visual_odometry_tpu_torch.models import ba as BA
     from monocular_visual_odometry_tpu_torch.models import state as S
     from monocular_visual_odometry_tpu_torch.models import vo as V
+    from monocular_visual_odometry_tpu_torch.ops.cuda import ba_lm as BL
     from monocular_visual_odometry_tpu_torch.ops.cuda import hamming as HM
     from monocular_visual_odometry_tpu_torch.utils import metrics
 
@@ -2340,6 +2383,7 @@ def _eval_program(name, c, cam, streams, seqs, tag="4j", n=EVAL_FRAMES):
         torch.cuda.synchronize()
         HM.hamming_nn_top2.launches = 0
         BA.ba_update_state.calls = 0
+        BL.ba_lm_pose.launches = 0
         replays = prog.replays
         t0 = time.perf_counter()
         final, outs = V.run_sequences_general(c, cam, sts, frames, height=H, width=W)
@@ -2352,6 +2396,7 @@ def _eval_program(name, c, cam, streams, seqs, tag="4j", n=EVAL_FRAMES):
             raise AssertionError(f"{tag} {name} batch {i}: {replays} replays, {launches} matcher "
                                  f"launches, {ba_calls} ba_update_state calls in {n} steps "
                                  f"(expected {n}, {3 * n}, {want_ba})")
+        _check_ba_kernel(f"{tag} {name} batch {i}", c, BL.ba_lm_pose.launches, ba_calls)
         poses = outs.T_w_c.cpu().numpy()
         stage, ok = outs.stage.cpu().numpy(), outs.tracking_ok.cpu().numpy()
         used_h = outs.used_homography.cpu().numpy()
@@ -2604,6 +2649,7 @@ def _measure_pieces(tag, progs, reset=None):
             kernels=sum(c for _, _, c in ks) // STAGE_PROFILED,
             busy_ms=sum(t for _, t, _ in ks) / STAGE_PROFILED,
             matcher=sum(c for n, _, c in ks if "hamming_nn_top2" in n) // STAGE_PROFILED,
+            ba_kernel=sum(c for n, _, c in ks if "ba_lm_pose" in n) // STAGE_PROFILED,
             counters=dict(prog.per_call),
             top=[(n[:70], t / STAGE_PROFILED, c / STAGE_PROFILED) for n, t, c in ks[:5]])
     return out
@@ -2628,6 +2674,21 @@ def _check_matcher(tag, rec):
           + ", ".join(f"{k} {c} / {p}" for k, (c, p) in got.items()), flush=True)
     if any(g != (want[k], want[k]) for k, g in got.items()):
         raise AssertionError(f"{tag}: matcher launches per call (counted, profiled) {got}, "
+                             f"expected {want}")
+
+
+def _check_ba_pieces(tag, rec):
+    """Each piece launched ``ba_lm_pose`` once per ``ba_update_state`` call
+    (the ``ba_solve`` piece: once), by its counter (per replay) and in its
+    profile."""
+    want = {k: 1 if k == "ba_solve" else r["counters"]["ba_update_state"]
+            for k, r in rec.items()}
+    got = {k: (r["counters"]["ba_lm_pose"], r["ba_kernel"]) for k, r in rec.items()}
+    print(f"{tag}: ba_lm_pose launches per call (counted, profiled) "
+          + ", ".join(f"{k} {c} / {p}" for k, (c, p) in got.items() if c or p or want[k]),
+          flush=True)
+    if any(g != (want[k], want[k]) for k, g in got.items()):
+        raise AssertionError(f"{tag}: ba_lm_pose launches per call (counted, profiled) {got}, "
                              f"expected {want}")
 
 
@@ -2734,6 +2795,7 @@ def _phase_4k_track(SP, cfg, cam, state_seq, ba_kernels):
     # the matcher ran where the path runs it: one launch in c, d, e and the
     # keyframe update, two in the tracking program (PERF.md section 2)
     _check_matcher("4k (a)", rec)
+    _check_ba_pieces("4k (a)", rec)
 
     # BA: the 12-iteration piece is phase 4c's call, and its parts add up
     n_it = cfg.ba.iterations
@@ -2889,6 +2951,118 @@ def _phase_4k(cfg, frames, state_seq, drift_seq, planar_seq, ba_kernels):
     return dict(track=track, init=init, rows=rows, seconds=took)
 
 
+def _ba_window(W, K, M, seed):
+    """A BA window as ``models/ba.py::gather_window`` gives one (float32, on
+    the card): W cameras 0.1 apart looking at M points 4-9 units ahead, K
+    observations each at 0.5 px noise (the points behind z = 0.5 invalid),
+    the first W - 2 poses perturbed by ~0.02."""
+    from monocular_visual_odometry_tpu_torch.models import ba as BA
+    from monocular_visual_odometry_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-3, 3, M), rng.uniform(-2, 2, M), rng.uniform(4, 9, M)], 1)
+    rot = lie.so3_exp(torch.from_numpy(rng.uniform(-0.05, 0.05, (W, 3)))).numpy()
+    T_c_w = np.tile(np.eye(4), (W, 1, 1))
+    T_c_w[:, :3, :3] = rot
+    T_c_w[:, :3, 3] = -np.einsum("wij,wj->wi", rot, np.outer(np.arange(W), [0.1, 0.02, 0.05]))
+    pid = np.stack([rng.choice(M, K, replace=False) for _ in range(W)]).astype(np.int32)
+    p_c = np.einsum("wij,wkj->wki", T_c_w[:, :3, :3], pts[pid]) + T_c_w[:, None, :3, 3]
+    uv = p_c[..., :2] / p_c[..., 2:] * 615.0 + [320.0, 240.0] + rng.normal(0, 0.5, (W, K, 2))
+    xi = np.concatenate([rng.normal(0, 0.02, (W, 3)), rng.normal(0, 0.01, (W, 3))], 1)
+    xi[W - 2:] = 0.0
+    T0 = lie.se3_exp(torch.from_numpy(xi)) @ torch.from_numpy(T_c_w)
+    used = np.zeros(M, bool)
+    used[pid] = True
+    on = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dt)
+    return BA.BAProblem(T_c_w=on(T0.numpy(), torch.float32), obs_uv=on(uv, torch.float32),
+                        obs_pid=on(pid, torch.int32), obs_valid=on(p_c[..., 2] > 0.5, torch.bool),
+                        pts=on(pts, torch.float32), pt_used=on(used, torch.bool),
+                        frame_valid=on(np.ones(W, bool), torch.bool))
+
+
+def _ba_bound(prob, iterations, float64):
+    """(bound ms, what bounds it, FLOPs, bytes) of one LM solve on ``prob``:
+    each input read once (the landmarks each window links), each output
+    written once, and the FLOPs of iterations + 1 passes and W steps an
+    iteration."""
+    W, K = prob.obs_valid.shape
+    used = int(torch.unique(prob.obs_pid).numel())
+    flops = W * K * BA_FLOPS_PER_OBS * (iterations + 1) + W * iterations * BA_FLOPS_PER_STEP
+    nbytes = 2 * W * 64 + W * K * (8 + 4 + 1) + used * 12 + W + 4 * iterations
+    ops_ms = flops / (FP64_PEAK if float64 else FP32_PEAK) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes
+
+
+def _phase_3_ba():
+    """Phase 3, the BA LM kernel (``ba_lm_pose``) at BA_SHAPES: the kernel
+    (``ba_solve``, landmarks fixed, vmapped at B > 1) against its plain
+    version (``lm_loop``, vmapped at B > 1) on the card, poses within BA_TOL
+    (float64: rtol 1e-6), every stream of a batched launch equal to its own
+    launch (``torch.equal``) and one launch per call; device and eager ms of
+    both, and the kernel's bound. Returns the rows."""
+    from monocular_visual_odometry_tpu_torch.models import ba as BA
+    from monocular_visual_odometry_tpu_torch.ops.camera import Camera
+    from monocular_visual_odometry_tpu_torch.ops.cuda import ba_lm as BL
+    from monocular_visual_odometry_tpu_torch.utils.config import VOConfig
+
+    cam = Camera.create(615.0, 615.0, 320.0, 240.0)
+    rows = []
+    for i, (tag, W_, K_, M_, nb, f64) in enumerate(BA_SHAPES):
+        cfg = VOConfig()
+        cfg = cfg.replace(ba=dataclasses.replace(cfg.ba, window=W_, deterministic=f64))
+        probs = [_ba_window(W_, K_, M_, 300 + 10 * i + b) for b in range(nb)]
+        if nb == 1:
+            prob = probs[0]
+            kernel = lambda: BA.ba_solve(cfg, cam, prob)
+            plain = lambda: BA.lm_loop(cfg.ba, cam, prob)
+        else:
+            stacked = BA.BAProblem(*(torch.stack(f) for f in zip(*probs)))
+            kernel = lambda: torch.func.vmap(
+                lambda *f: BA.ba_solve(cfg, cam, BA.BAProblem(*f)))(*stacked)
+            plain = lambda: torch.func.vmap(
+                lambda *f: BA.lm_loop(cfg.ba, cam, BA.BAProblem(*f)))(*stacked)
+        before = BL.ba_lm_pose.launches
+        got = kernel()
+        launches = BL.ba_lm_pose.launches - before
+        want = plain()
+        torch.cuda.synchronize()
+        if launches != 1:
+            raise AssertionError(f"ba_lm_pose {tag}: {launches} launches for one call")
+        err = float((got[0] - want[0]).abs().max())
+        cost_err = float(((got[2] - want[2]).abs() / want[2].abs().clamp(min=1e-30)).max())
+        if f64:
+            torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-7)
+            torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=1e-7)
+        elif not err <= BA_TOL:
+            raise AssertionError(f"ba_lm_pose {tag}: poses differ from the plain version by "
+                                 f"{err:.3e} (tolerance {BA_TOL})")
+        if nb > 1:
+            for b, p in enumerate(probs):
+                one = BA.ba_solve(cfg, cam, p)
+                if not (torch.equal(one[0], got[0][b]) and torch.equal(one[2], got[2][b])):
+                    raise AssertionError(f"ba_lm_pose {tag}: stream {b} of the batched launch "
+                                         f"differs from its own launch")
+        ms, eager_ms = _time_ms(kernel, 100)
+        plain_ms, plain_eager_ms = _time_ms(plain, 2)
+        bounds = [_ba_bound(p, cfg.ba.iterations, f64) for p in probs]
+        row = dict(shape=tag, W=W_, K=K_, M=M_, batch=nb, float64=f64,
+                   iterations=cfg.ba.iterations, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                   plain_eager_ms=plain_eager_ms, bound_ms=sum(b[0] for b in bounds),
+                   bound_by=bounds[0][1], flops=sum(b[2] for b in bounds),
+                   bytes=sum(b[3] for b in bounds), max_abs_err=err, cost_rel_err=cost_err,
+                   final_cost=float(got[2][..., -1].max()))
+        rows.append(row)
+        print(f"kernel ba_lm_pose {tag} B={nb} W={W_} K={K_} M={M_} "
+              f"{'float64' if f64 else 'float32'}, {cfg.ba.iterations} iterations: against the "
+              f"plain version poses within {err:.3e}, costs within {cost_err:.3e} (relative); "
+              f"one launch per call{'; every stream equal to its own launch' if nb > 1 else ''}; "
+              f"device: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; eager: kernel "
+              f"{eager_ms:.4f} ms, plain {plain_eager_ms:.4f} ms; bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']}: {row['flops']} FLOP, {row['bytes']} bytes)", flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2900,6 +3074,7 @@ def main() -> int:
     from monocular_visual_odometry_tpu_torch.models.vo import VOEngine
     from monocular_visual_odometry_tpu_torch.ops import lie
     from monocular_visual_odometry_tpu_torch.ops.cuda import build
+    from monocular_visual_odometry_tpu_torch.ops.cuda import ba_lm as BL
     from monocular_visual_odometry_tpu_torch.ops.cuda import hamming as HM
     from monocular_visual_odometry_tpu_torch.utils import metrics
     from monocular_visual_odometry_tpu_torch.utils.config import VOConfig
@@ -3123,6 +3298,9 @@ def main() -> int:
               f"({row['bound_by']}, B x the single-stream bounds), {row['gated_pairs']} "
               f"gated pairs", flush=True)
 
+    elapsed("phase 3, BA LM kernel")
+    ba_rows = _phase_3_ba()
+
     elapsed("phase 4")
     # ---- 4. main path: the default config (BA on), then BA off, then 5pt ---
     t0 = time.perf_counter()
@@ -3256,11 +3434,14 @@ def main() -> int:
     # ---- 4c. one ba_update_state on the state after frame PROFILE_FROM+PROFILE_FRAMES
     st = prof_eng.state
     torch.cuda.synchronize()
+    calls0, launches0 = BA.ba_update_state.calls, BL.ba_lm_pose.launches
     torch.cuda.set_sync_debug_mode("error")  # any wait on the stream raises
     try:
         got = BA.ba_update_state(cfg, prof_eng.cam, st)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    _check_ba_kernel("4c", cfg, BL.ba_lm_pose.launches - launches0,
+                     BA.ba_update_state.calls - calls0)
     torch.cuda.synchronize()
     want = BA.ba_update_state(cfg, prof_eng.cam, S.state_to(st, "cpu"))
     ba_err = max(float((getattr(got, f).cpu() - getattr(want, f)).abs().max())
@@ -3373,6 +3554,7 @@ def main() -> int:
         torch.cuda.synchronize()
         HM.hamming_nn_top2.launches = 0
         BA.ba_update_state.calls = 0
+        BL.ba_lm_pose.launches = 0
         t0 = time.perf_counter()
         prog = V._batched_program("tracking", cfg, cam, nb, H, W, frames_b.device)
         replays = prog.replays
@@ -3416,6 +3598,7 @@ def main() -> int:
                                  f"{2 * n_steps} (tracking and keyframe update, per step)")
         if ba_calls != n_steps:
             raise AssertionError(f"4e B={nb}: {ba_calls} ba_update_state calls, expected {n_steps}")
+        _check_ba_kernel(f"4e B={nb}", cfg, BL.ba_lm_pose.launches, ba_calls)
         for b in range(nb):
             ref = single[b]["ate"]
             if stages[b] != S.STAGE_TRACKING or r["n_fail"][b] > 5:
@@ -3616,6 +3799,21 @@ def main() -> int:
                 "eager_kernels_per_step", "busy_share", "eager_busy_share", "capture_s",
                 "capture_gib")}
                 for nb, r in general.items()}),
+        "card": card,
+    }, {
+        "name": "ba_lm_pose",
+        "route": "cuda",
+        "source": "monocular_visual_odometry_tpu_torch/csrc/ba_lm_pose.cu",
+        "replaces": None,
+        "launches": main["ba_kernel"],
+        "ba_update_state_calls": main["ba_calls"],
+        "plain": "monocular_visual_odometry_tpu_torch/models/ba.py::lm_loop",
+        "ms": ba_rows[0]["ms"],
+        "plain_ms": ba_rows[0]["plain_ms"],
+        "bound_ms": ba_rows[0]["bound_ms"],
+        "bound_by": ba_rows[0]["bound_by"],
+        "eager_ms": ba_rows[0]["eager_ms"],
+        "shapes": ba_rows,
         "card": card,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

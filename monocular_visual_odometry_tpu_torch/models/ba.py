@@ -6,8 +6,10 @@ fixed iteration count, chi2 re-gate, Schur elimination of the landmark
 blocks and trust-region write-back.
 
 The JAX LM is one ``lax.scan`` whose accept/reject, damping and cost are
-selects. Here it is a Python loop of ``cfg.ba.iterations`` steps over the
-same selects: nothing in :func:`ba_update_state` reads a device value on the
+selects. Here it is :func:`lm_loop`, a Python loop of ``cfg.ba.iterations``
+steps over the same selects; with the landmarks fixed, a card runs it as one
+kernel instead (``ops/cuda/ba_lm.py``), and the loop is that kernel's plain
+version. Nothing in :func:`ba_update_state` reads a device value on the
 host, so on a card the whole update is queued without waiting on the stream.
 That is why the solves are the ``*_ex`` variants with ``check_errors=False``
 (the checked ones read LAPACK's ``info`` back), why no tensor is built from
@@ -26,7 +28,8 @@ from monocular_visual_odometry_tpu_torch.ops import lie
 from monocular_visual_odometry_tpu_torch.ops import precision  # noqa: F401  (TF32 off)
 from monocular_visual_odometry_tpu_torch.ops.camera import Camera
 from monocular_visual_odometry_tpu_torch.ops.consts import take as _take
-from monocular_visual_odometry_tpu_torch.utils.config import VOConfig
+from monocular_visual_odometry_tpu_torch.ops.cuda import ba_lm
+from monocular_visual_odometry_tpu_torch.utils.config import BAConfig, VOConfig
 
 
 class BAProblem(NamedTuple):
@@ -145,11 +148,11 @@ def _robust_weights(r: torch.Tensor, valid: torch.Tensor, info: torch.Tensor,
     return torch.where(valid, w, torch.zeros_like(w))
 
 
-def _info_matrix(cfg: VOConfig, dtype, device) -> torch.Tensor:
+def _info_matrix(bc: BAConfig, dtype, device) -> torch.Tensor:
     """The 2x2 information matrix on ``device``, filled in place (a copy
     from host memory would synchronise the stream)."""
     info = torch.empty(4, dtype=dtype, device=device)
-    for i, v in enumerate(cfg.ba.information_matrix):
+    for i, v in enumerate(bc.information_matrix):
         info[i].fill_(v)
     return info.reshape(2, 2)
 
@@ -166,21 +169,34 @@ def ba_solve(cfg: VOConfig, cam: Camera, prob: BAProblem):
     ``cfg.ba.regate_px`` > 0 the observations whose residual at the current
     iterate exceeds the gate are dropped entering iteration
     ``iterations // 2``. ``cfg.ba.deterministic`` runs every reduction in
-    float64."""
-    W = cfg.ba.window
+    float64.
+
+    With the landmarks fixed, on CUDA tensors the whole LM is one launch of
+    ``csrc/ba_lm_pose.cu`` (``ops/cuda/ba_lm.py``; it raises rather than fall
+    back), and :func:`lm_loop` is its plain version, which CPU tensors take.
+    The joint (Schur) mode is :func:`lm_loop` on every device."""
+    if cfg.ba.fix_map_points and prob.pts.is_cuda:
+        return ba_lm.ba_lm_pose(cfg.ba, cam, prob)
+    return lm_loop(cfg.ba, cam, prob)
+
+
+def lm_loop(bc: BAConfig, cam: Camera, prob: BAProblem):
+    """:func:`ba_solve` as a loop of PyTorch operations, under the BA
+    settings ``bc`` (``cfg.ba``): the same outputs."""
+    W = bc.window
     M = prob.pts.shape[0]
-    dtype = torch.float64 if cfg.ba.deterministic else torch.float32
+    dtype = torch.float64 if bc.deterministic else torch.float32
     dev = prob.pts.device
     T0 = prob.T_c_w.to(dtype)
     pts0 = prob.pts.to(dtype)
     obs_uv = prob.obs_uv.to(dtype)
     obs_pid = prob.obs_pid.to(torch.int64)
     flat_pid = obs_pid.reshape(-1)
-    info = _info_matrix(cfg, dtype, dev)
-    huber = cfg.ba.huber_delta
-    fix_points = cfg.ba.fix_map_points
-    regate = cfg.ba.regate_px > 0 and cfg.ba.iterations >= 2
-    n1 = cfg.ba.iterations // 2          # the re-gate fires entering iteration n1
+    info = _info_matrix(bc, dtype, dev)
+    huber = bc.huber_delta
+    fix_points = bc.fix_map_points
+    regate = bc.regate_px > 0 and bc.iterations >= 2
+    n1 = bc.iterations // 2          # the re-gate fires entering iteration n1
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
 
@@ -205,10 +221,10 @@ def ba_solve(cfg: VOConfig, cam: Camera, prob: BAProblem):
 
     T_c_w, pts = T0, pts0
     valid, pt_used = prob.obs_valid, prob.pt_used
-    lam = torch.full((), cfg.ba.init_lambda, dtype=dtype, device=dev)
+    lam = torch.full((), bc.init_lambda, dtype=dtype, device=dev)
     cost_old = cost_fn(T_c_w, pts, valid)
     costs = []
-    for i in range(cfg.ba.iterations):
+    for i in range(bc.iterations):
         r, J_c, J_p = _residuals_and_jacobians(T_c_w, pts, obs_uv, obs_pid, cam)
         if regate and i == n1:
             # chi2 re-gate at the current iterate (ORB-SLAM's two-stage
@@ -216,16 +232,16 @@ def ba_solve(cfg: VOConfig, cam: Camera, prob: BAProblem):
             err2 = r[..., 0] ** 2 + r[..., 1] ** 2
             z = (torch.einsum("wij,wkj->wki", T_c_w[:, :3, :3], pts[obs_pid])
                  + T_c_w[:, None, :3, 3])[..., 2]
-            gate2 = torch.full((), cfg.ba.regate_px * cfg.ba.regate_px, dtype=dtype,
+            gate2 = torch.full((), bc.regate_px * bc.regate_px, dtype=dtype,
                                device=dev)
-            if cfg.ba.regate_sigma_mult > 0:
+            if bc.regate_sigma_mult > 0:
                 flat = torch.sort(torch.where(valid, err2,
                                               torch.full_like(err2, float("inf"))).reshape(-1)).values
                 nv = torch.sum(valid)
                 med2 = _take(flat, torch.clamp(torch.div(nv - 1, 2, rounding_mode="floor"),
                                                min=0))
                 med2 = torch.where(torch.isfinite(med2), med2, torch.zeros_like(med2))
-                gate2 = torch.maximum(gate2, cfg.ba.regate_sigma_mult ** 2 * med2)
+                gate2 = torch.maximum(gate2, bc.regate_sigma_mult ** 2 * med2)
             keep = valid & (z > 0) & (err2 < gate2)
             enough = torch.sum(keep, dim=1) >= 3
             valid = torch.where(enough[:, None], keep, valid)

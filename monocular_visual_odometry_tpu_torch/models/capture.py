@@ -38,8 +38,9 @@ such a program with static buffers for its inputs:
   spans ``capture.warmup`` and ``capture.graph``, whose seconds are
   ``warmup_s`` and ``capture_s``; ``pool_bytes`` is the card memory the
   graph's pool holds after the capture.
-- **Counters.** ``hamming_nn_top2.launches``, ``ba_update_state.calls``
-  and ``ba_update_state_dist.calls`` count in Python, so a replay would not
+- **Counters.** ``hamming_nn_top2.launches``, ``ba_lm_pose.launches``,
+  ``ba_update_state.calls`` and ``ba_update_state_dist.calls`` count in
+  Python, so a replay would not
   move them. The capture records what one call adds to each and each replay
   adds it; the warm-up and the capture itself are set-up and leave them as
   they were. A ``parallel.mesh.PointsMesh`` handed as ``mesh`` is treated
@@ -62,12 +63,13 @@ from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from monocular_visual_odometry_tpu_torch.models import ba
 from monocular_visual_odometry_tpu_torch.ops import consts, features
-from monocular_visual_odometry_tpu_torch.ops.cuda import hamming
+from monocular_visual_odometry_tpu_torch.ops.cuda import ba_lm, hamming
 from monocular_visual_odometry_tpu_torch.parallel import dist_ba
 from monocular_visual_odometry_tpu_torch.utils import logging as lg
 
 # the Python-side counters a replay moves: name -> (function, attribute)
 COUNTERS = {"hamming_nn_top2": (hamming.hamming_nn_top2, "launches"),
+            "ba_lm_pose": (ba_lm.ba_lm_pose, "launches"),
             "ba_update_state": (ba.ba_update_state, "calls"),
             "ba_update_state_dist": (dist_ba.ba_update_state_dist, "calls")}
 # caches of device tensors the programs read: an entry made during a capture

@@ -89,7 +89,7 @@ def dist_lm(cfg: VOConfig, cam: Camera, mesh: PointsMesh, lp: LocalProblem):
     obs_uv = lp.obs_uv.to(dtype)
     obs_pid = lp.obs_pid.to(torch.int64)
     flat_pid = obs_pid.reshape(-1)
-    info = BA._info_matrix(cfg, dtype, dev)
+    info = BA._info_matrix(cfg.ba, dtype, dev)
     huber = cfg.ba.huber_delta
     fix_points = cfg.ba.fix_map_points
     regate = cfg.ba.regate_px > 0 and cfg.ba.iterations >= 2

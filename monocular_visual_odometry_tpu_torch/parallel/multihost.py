@@ -100,7 +100,7 @@ def main(argv=None) -> int:
 
     # both solutions priced by one evaluator: the robust cost on the full
     # local problem (the solvers' own final costs sit at the noise floor)
-    info = BA._info_matrix(cfg, torch.float32, prob.pts.device)
+    info = BA._info_matrix(cfg.ba, torch.float32, prob.pts.device)
 
     def robust_cost(T, pts):
         T = torch.from_numpy(T).to(prob.pts.device)

@@ -27,7 +27,11 @@ K2=1).
 
 BA's scatter-adds are atomics on the card, so float32 sums differ from the
 CPU's in the last bits: poses agree to 1e-4, and with ``deterministic=True``
-(float64) to float32 rounding (rtol 1e-6). The five-point solver is compared
+(float64) to float32 rounding (rtol 1e-6). With the landmarks fixed the LM
+is one kernel on the card (``csrc/ba_lm_pose.cu``): it is held against its
+plain version (``lm_loop``) on the card at the main path's windows, under
+vmap (one launch; each stream its own launch exactly), and its wrapper's
+refusals; it launches once per BA call, per replay on the graph route. The five-point solver is compared
 in float64, as a solution set (see ``test_torch_fivepoint.py``). A state
 checkpoint saved on the card resumes there. ``VOEngine``'s graph route (one
 replay of a captured stage program per frame) equals the eager ``step``
@@ -444,6 +448,119 @@ def test_ba_update_state_on_card_never_waits_on_the_host(card):
     assert int(got.ba_rejected) == int(want.ba_rejected)
 
 
+# the BA LM kernel (csrc/ba_lm_pose.cu) at the main path's windows: (W, K,
+# which frames are out of the window, whether every observation is invalid);
+# W=8 K=1,536 holds more observations than the kernel stages in shared
+# memory (float32), so the rest come from global memory
+BA_LM_CASES = {
+    "W5_K1024": (5, 1024, (), False),
+    "W5_K1500": (5, 1500, (), False),
+    "W8_K1024": (8, 1024, (), False),
+    "W8_K1536": (8, 1536, (), False),
+    "W5_K1024_empty_frames": (5, 1024, (1, 4), False),
+    "W5_K1024_all_invalid": (5, 1024, (), True),
+}
+
+
+def _ba_lm_case(case, seed=0):
+    W, K, empty, invalid = BA_LM_CASES[case]
+    prob = _ba_problem(W=W, K=K, M=4096, seed=seed)
+    fv = torch.tensor([w not in empty for w in range(W)])
+    valid = prob.obs_valid & fv[:, None] & (not invalid)
+    return prob._replace(frame_valid=fv, obs_valid=valid)
+
+
+def _ba_lm_cfg(deterministic=False, **kw):
+    cfg = VOConfig()
+    return cfg.replace(ba=dataclasses.replace(cfg.ba, deterministic=deterministic, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deterministic", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", sorted(BA_LM_CASES))
+def test_ba_lm_kernel_equals_plain_version(card, case, deterministic):
+    """``ba_solve`` (landmarks fixed: the kernel, one launch) against its
+    plain version ``lm_loop`` on the same card tensors: poses within 1e-4
+    and costs within 1e-4 relative in float32 (sums in another order), rtol
+    1e-6 in float64; out-of-window frames unmoved, and with every
+    observation invalid nothing moves and the costs are 0."""
+    cfg = _ba_lm_cfg(deterministic)
+    prob = _on(_ba_lm_case(case), "cuda")
+    launches = TB.ba_lm.ba_lm_pose.launches
+    got = TB.ba_solve(cfg, CAM, prob)
+    assert TB.ba_lm.ba_lm_pose.launches == launches + 1
+    want = TB.lm_loop(cfg.ba, CAM, prob)
+    if deterministic:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-6)
+    assert got[1] is prob.pts
+    out = ~prob.frame_valid
+    assert torch.equal(got[0][out], prob.T_c_w[out])
+    if BA_LM_CASES[case][3]:
+        assert torch.equal(got[0], prob.T_c_w) and not got[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 25])
+def test_ba_lm_kernel_under_vmap_equals_its_single_launch(card, batch):
+    """``torch.func.vmap`` of ``ba_solve`` is one launch, one block per
+    stream; each stream equals its own launch exactly (a block's sums run in
+    a fixed order), the re-gate included."""
+    cfg = _ba_lm_cfg(regate_px=3.0)
+    probs = [_on(_ba_lm_case("W5_K1024", seed=20 + b), "cuda") for b in range(batch)]
+    stacked = [torch.stack(f) for f in zip(*probs)]
+    launches = TB.ba_lm.ba_lm_pose.launches
+    T, _, costs = torch.func.vmap(lambda *f: TB.ba_solve(cfg, CAM, TB.BAProblem(*f)))(*stacked)
+    assert TB.ba_lm.ba_lm_pose.launches == launches + 1
+    for b, p in enumerate(probs):
+        one = TB.ba_solve(cfg, CAM, p)
+        assert torch.equal(T[b], one[0]) and torch.equal(costs[b], one[2]), b
+
+
+@pytest.mark.cuda
+def test_ba_lm_wrapper_rejects_what_the_kernel_does_not_take(card):
+    from monocular_visual_odometry_tpu_torch.ops.cuda import ba_lm
+
+    cfg = _ba_lm_cfg()
+    prob = _on(_ba_lm_case("W5_K1024"), "cuda")
+    with pytest.raises(ValueError, match="fix_map_points"):
+        ba_lm.ba_lm_pose(dataclasses.replace(cfg.ba, fix_map_points=False), CAM, prob)
+    bad = {"device": (ValueError, prob._replace(obs_uv=prob.obs_uv.cpu())),
+           "dtype": (TypeError, prob._replace(T_c_w=prob.T_c_w.double())),
+           "pid dtype": (TypeError, prob._replace(obs_pid=prob.obs_pid.long())),
+           "shape": (ValueError, prob._replace(obs_valid=prob.obs_valid[:, :-1])),
+           "contiguity": (ValueError, prob._replace(
+               obs_uv=prob.obs_uv.transpose(0, 1).contiguous().transpose(0, 1)))}
+    for what, (err, p) in bad.items():
+        with pytest.raises(err):
+            ba_lm.ba_lm_pose(cfg.ba, CAM, p)
+    big = _on(_ba_problem(W=8, K=40000, M=40000), "cuda")
+    with pytest.raises(ValueError, match="does not fit"):
+        ba_lm.ba_lm_pose(cfg.ba, CAM, big)
+
+
+@pytest.mark.cuda
+def test_ba_lm_kernel_runs_once_per_ba_call_and_per_replay(card):
+    """Over 12 frames on the graph route and the eager step, ``ba_lm_pose``
+    launches once per ``ba_update_state`` call (counted per replay), and the
+    profile of one replayed tracking frame shows the kernel once."""
+    cfg = VOConfig()
+    frames, _ = TSYN.render_sequence_arrays(12, seed=0, translation_step=0.05)
+    launches, calls = TB.ba_lm.ba_lm_pose.launches, TB.ba_update_state.calls
+    eng, _, _ = _graph_and_eager(cfg, frames[:11])
+    assert TB.ba_update_state.calls - calls >= 3
+    assert TB.ba_lm.ba_lm_pose.launches - launches == TB.ba_update_state.calls - calls
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eng.add_frame(frames[11])
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("ba_lm_pose" in n for n in names) == 1, len(names)
+
+
 def _five_point_samples(n=64, nb=32, seed=0):
     """Clean minimal samples of a random two-view scene (normalized plane)."""
     rng = np.random.default_rng(seed)
@@ -589,8 +706,8 @@ def test_graph_route_equals_eager_step(card):
         assert float(TL.pose_distance(g.T_w_c, w.T_w_c)) <= 1e-4
     progs = eng.stages.programs
     assert sum(p.replays for p in progs.values()) == len(frames)
-    assert progs[TS.STAGE_TRACKING].per_call == {"hamming_nn_top2": 2, "ba_update_state": 1,
-                                                 "ba_update_state_dist": 0}
+    assert progs[TS.STAGE_TRACKING].per_call == {"hamming_nn_top2": 2, "ba_lm_pose": 1,
+                                                 "ba_update_state": 1, "ba_update_state_dist": 0}
     # the eager run added its own: 1 per init attempt, 1 + is_keyframe per
     # tracking frame, BA where tracking held
     eager_launches = sum({0: 0, 1: 1}.get(s, 1 + int(bool(o.is_keyframe)))

@@ -144,7 +144,7 @@ def test_engine_equals_step(ba, eager_runs, engine_runs):
     assert launches == 0 and eng.captured_stages == ()
     prog = eng.stages.programs[TS.STAGE_TRACKING]
     assert prog.calls == sum(tracking) and prog.replays == 0
-    assert prog.per_call == {"hamming_nn_top2": 0, "ba_update_state": int(ba),
+    assert prog.per_call == {"hamming_nn_top2": 0, "ba_lm_pose": 0, "ba_update_state": int(ba),
                              "ba_update_state_dist": 0}
 
 
@@ -255,7 +255,7 @@ def test_batched_step_through_captured_step_equals_eager_body(kind, frames, eage
         _assert_equal(got, want, f"step {k}")
         _assert_equal(sts, want_st, f"step {k}")
     prog = TV._batched_program(kind, cfg, CAM, 2, H, W, torch.device("cpu"))
-    assert prog.per_call == {"hamming_nn_top2": 0, "ba_update_state": 1,
+    assert prog.per_call == {"hamming_nn_top2": 0, "ba_lm_pose": 0, "ba_update_state": 1,
                              "ba_update_state_dist": 0} and prog.replays == 0
 
 
@@ -285,7 +285,7 @@ def test_captured_step_buffers_aliasing_and_counters():
     assert out.tolist() == [1.0]  # an eager call's outputs are its own tensors
     assert new2.a is new.a        # the state buffers, written in place
     assert TB.ba_update_state.calls == calls + 2
-    assert prog.per_call == {"hamming_nn_top2": 0, "ba_update_state": 1,
+    assert prog.per_call == {"hamming_nn_top2": 0, "ba_lm_pose": 0, "ba_update_state": 1,
                              "ba_update_state_dist": 0}
     assert (prog.calls, prog.replays) == (2, 0)
     with pytest.raises(ValueError, match="shape"):
